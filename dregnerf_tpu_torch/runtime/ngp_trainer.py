@@ -1,0 +1,411 @@
+"""NGP per-block training runtime (port of dregnerf_tpu/runtime/ngp_trainer.py).
+
+One step: sample pixels, blend synthetic RGBA over a random background,
+generate rays, march + render with stratified jitter, Huber loss over the
+alive rays, backward (the table gradient goes through kernel K1 under
+grad_accum="pallas"), Adam (lr 1e-2, eps 1e-15) under the x0.33
+multistep schedule at {1/2, 3/4, 9/10} of training. Every 16 steps the
+occupancy grid gets an EMA update (all cells below step 256). The ray
+bucket follows the sample budget in powers of two, from a count read back
+once every 8 steps with one interval of lag, so the host never waits for
+the step it just queued.
+
+The step's random draws (`StepDraws`) are tensors; the trainer draws them
+on the device from its own `torch.Generator`. Not ported yet: the watchdog
+and retry wrappers of `train()`, data-parallel and fleet training, and
+tensorboard (scalars go to `log.jsonl`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from dregnerf_tpu_torch.datasets.base import SceneData
+from dregnerf_tpu_torch.device import resolve_device
+from dregnerf_tpu_torch.geometry.cameras import image_rays, rays_from_pixels
+from dregnerf_tpu_torch.models import ngp
+from dregnerf_tpu_torch.ops import occupancy
+from dregnerf_tpu_torch.ops.contraction import contract_inv
+from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig, check_backward_supported
+from dregnerf_tpu_torch.render.renderer import (
+    RenderConfig,
+    render_image_chunked,
+    render_rays,
+)
+from dregnerf_tpu_torch.runtime.checkpoint import CheckpointManager, load_checkpoint
+
+OCC_UPDATE_INTERVAL = 16
+OCC_WARMUP_STEPS = 256
+BATCH_SYNC_INTERVAL = 8
+OCC_EVAL_CHUNK = 1 << 16
+BASE_LR = 1e-2
+
+
+def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """smooth_l1, elementwise."""
+    absx = x.abs()
+    return torch.where(absx < delta, 0.5 * x * x / delta, absx - 0.5 * delta)
+
+
+def mse_to_psnr(x: torch.Tensor) -> torch.Tensor:
+    return -10.0 / math.log(10.0) * torch.log(x)
+
+
+def multistep_lr(base_lr: float, max_steps: int, gamma: float = 0.33) -> Callable[[int], float]:
+    """Learning rate of update i (0-based): base_lr times gamma for every
+    boundary floor(max_steps * {0.5, 0.75, 0.9}) <= i (boundaries that
+    coincide count once, as in the reference's dict of boundaries)."""
+    bounds = {int(max_steps * 0.5): gamma, int(max_steps * 0.75): gamma,
+              int(max_steps * 0.9): gamma}
+
+    def lr(i: int) -> float:
+        return base_lr * math.prod(g for b, g in bounds.items() if i >= b)
+
+    return lr
+
+
+class StepDraws(NamedTuple):
+    """The random inputs of one training step."""
+
+    img_id: torch.Tensor  # [R] int64
+    x: torch.Tensor  # [R] int64
+    y: torch.Tensor  # [R] int64
+    bg: torch.Tensor  # [3] f32
+    jitter: torch.Tensor  # [R, 1] f32
+
+
+def draw_step_inputs(generator: torch.Generator, num_rays: int, num_images: int,
+                     height: int, width: int, device) -> StepDraws:
+    def randint(high):
+        return torch.randint(0, high, (num_rays,), generator=generator, device=device)
+
+    return StepDraws(
+        img_id=randint(num_images), x=randint(width), y=randint(height),
+        bg=torch.rand(3, generator=generator, device=device),
+        jitter=torch.rand(num_rays, 1, generator=generator, device=device))
+
+
+def step_loss(params, model_config: ngp.NGPConfig, render_config: RenderConfig,
+              grid: occupancy.OccupancyGrid, aabb: torch.Tensor, images: torch.Tensor,
+              c2ws: torch.Tensor, K: torch.Tensor, draws: StepDraws,
+              synthetic: bool, opengl: bool):
+    """(loss, metrics) of one step: Huber over alive rays / (n_alive * 3)."""
+    rgba = images[draws.img_id, draws.y, draws.x].to(torch.float32) / 255.0
+    if synthetic:
+        pixels = rgba[:, :3] * rgba[:, 3:4] + draws.bg * (1.0 - rgba[:, 3:4])
+    else:
+        pixels = rgba[:, :3]
+    rays = rays_from_pixels(draws.x, draws.y, K, c2ws[draws.img_id], opengl)
+    out, aux = render_rays(params, model_config, grid, rays.origins, rays.viewdirs,
+                           aabb, render_config, background=draws.bg,
+                           stratified=True, jitter=draws.jitter, device=aabb.device)
+    alive = (aux["ray_counts"] > 0).to(torch.float32)
+    n_alive = alive.sum()
+    denom = torch.clamp(n_alive, min=1.0) * 3.0
+    diff = out.rgb - pixels
+    loss = (huber(diff) * alive[:, None]).sum() / denom
+    sq = (diff.detach() ** 2 * alive[:, None]).sum() / denom
+    return loss, {"psnr": mse_to_psnr(sq), "n_samples": aux["n_samples"],
+                  "alive_rays": n_alive}
+
+
+def _host_reader(t: torch.Tensor) -> Callable[[], int]:
+    """Start copying scalar `t` to the host; the returned call waits for
+    that copy only (not for work queued after it) and gives its value."""
+    if t.device.type != "cuda":
+        return lambda: int(t)
+    host = torch.empty((), dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def read() -> int:
+        done.synchronize()
+        return int(host)
+
+    return read
+
+
+class NGPTrainer:
+    """Trains one NeRF block on `device` (default cuda, see
+    dregnerf_tpu_torch.device; `config.device` is read when the argument
+    is None)."""
+
+    def __init__(self, config, scene: SceneData, val_scene: Optional[SceneData] = None,
+                 output_dir: Optional[str] = None, device=None):
+        self.device = resolve_device(device if device is not None
+                                     else getattr(config, "device", None))
+        self.config = config
+        self.scene = scene
+        self.val_scene = val_scene
+        self.output_dir = output_dir or os.path.join(config.out_dir, config.expname)
+        os.makedirs(self.output_dir, exist_ok=True)
+        self.ckpt_manager = CheckpointManager(os.path.join(self.output_dir, "model"))
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+
+        self.setup_bounding_box()
+        self.build_networks()
+        self.setup_optimizer()
+        dev = self.device
+        self.images = torch.as_tensor(scene.images, device=dev)  # uint8, resident
+        self.c2ws = torch.as_tensor(scene.camtoworlds, dtype=torch.float32, device=dev)
+        self.K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+        self.num_rays = int(config.init_num_rays)
+        self.step = 0
+        self._pending_n_samples = None
+        self.log_path = os.path.join(self.output_dir, "log.jsonl")
+
+    # ------------------------------------------------------------------ setup
+    def setup_bounding_box(self) -> None:
+        cfg = self.config
+        aabb = np.asarray(cfg.aabb, np.float32)
+        self.aabb = torch.as_tensor(aabb, device=self.device)
+        self.contraction = "un_bounded_sphere" if cfg.unbounded else "aabb"
+        diag = float(np.linalg.norm(aabb[3:] - aabb[:3]))
+        self.render_step_size = diag / cfg.max_march_steps
+        self.near_plane = getattr(self.scene, "near", 0.0) or 0.0
+        self.far_plane = getattr(self.scene, "far", 1e10) or 1e10
+
+    def build_networks(self) -> None:
+        cfg = self.config
+        rle_step_u = 0.0
+        if cfg.rle_backward and not cfg.unbounded:
+            extent = float(np.min(np.asarray(cfg.aabb, np.float32)[3:]
+                                  - np.asarray(cfg.aabb, np.float32)[:3]))
+            rle_step_u = self.render_step_size / max(extent, 1e-9)
+        self.model_config = ngp.NGPConfig(
+            grid=PackedGridConfig(grad_accum=cfg.grad_accum, rle_step_u=rle_step_u),
+            unbounded=cfg.unbounded,
+            compute_dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
+        check_backward_supported(self.model_config.grid)  # fail before training
+        init_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.params = ngp.init_ngp(self.model_config, init_gen, self.device)
+        for p in ngp.parameters(self.params):
+            p.requires_grad_(True)
+        self.grid = occupancy.init_grid(cfg.grid_resolution, self.device)
+        self.render_config = RenderConfig(
+            contraction=self.contraction,
+            render_step_size=self.render_step_size,
+            buffer_size=cfg.sample_budget,
+            max_steps=cfg.max_march_steps,
+            near_plane=self.near_plane,
+            far_plane=self.far_plane,
+            chunk_size=cfg.test_chunk_size,
+            march_compaction=cfg.march_compaction or "capped",
+            k_cap=min(512, cfg.max_march_steps),
+        )
+        if self.render_config.march_compaction != "capped":
+            raise NotImplementedError(
+                f"training marcher {cfg.march_compaction!r} is not ported yet "
+                "(ROADMAP.md queue 1)")
+
+    def setup_optimizer(self) -> None:
+        self.lr_at = multistep_lr(BASE_LR, self.config.max_iterations)
+        self.optimizer = torch.optim.Adam(ngp.parameters(self.params), lr=BASE_LR,
+                                          betas=(0.9, 0.999), eps=1e-15)
+
+    # ------------------------------------------------------------- train step
+    def apply_gradients(self, step: int) -> None:
+        """Adam update number `step` with the scheduled learning rate."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_at(step)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def update_occupancy(self, step: int) -> None:
+        cfg = self.config
+        params = ngp.prepare_params(self.params, self.model_config)
+
+        def occ_fn(u: torch.Tensor) -> torch.Tensor:
+            return torch.cat([
+                ngp.query_density(params, contract_inv(c, self.aabb, self.contraction),
+                                  self.aabb, self.model_config).reshape(-1)
+                * self.render_step_size
+                for c in u.split(OCC_EVAL_CHUNK)])
+
+        self.grid = occupancy.update_grid(
+            self.grid, occ_fn, warmup=step < OCC_WARMUP_STEPS,
+            n_samples=min(cfg.grid_resolution**3 // 4, 1 << 17),
+            generator=self.generator)
+
+    def train_iteration(self, step: int) -> dict:
+        """One training step; returns its metrics as device tensors (plus
+        the ray bucket it ran with)."""
+        if step % OCC_UPDATE_INTERVAL == 0:
+            self.update_occupancy(step)
+        bucket = self.num_rays
+        draws = draw_step_inputs(self.generator, bucket, self.scene.num_images,
+                                 self.scene.height, self.scene.width, self.device)
+        loss, metrics = step_loss(
+            self.params, self.model_config, self.render_config, self.grid,
+            self.aabb, self.images, self.c2ws, self.K, draws,
+            self.scene.synthetic, self.scene.opengl)
+        loss.backward()
+        self.apply_gradients(step)
+        metrics["loss"] = loss.detach()
+
+        # ray bucket feedback from the count saved at the previous sync
+        if step % BATCH_SYNC_INTERVAL == 0:
+            prev = self._pending_n_samples
+            self._pending_n_samples = (bucket, _host_reader(metrics["n_samples"]))
+            if prev is not None:
+                prev_bucket, n_samples = prev[0], prev[1]()
+                if n_samples > 0:
+                    ideal = prev_bucket * self.config.sample_budget / n_samples
+                    new_bucket = 1 << int(round(math.log2(max(ideal, 1))))
+                    self.num_rays = int(np.clip(new_bucket, self.config.init_num_rays,
+                                                self.config.max_num_rays))
+        metrics["num_rays"] = bucket
+        return metrics
+
+    def train(self) -> None:
+        cfg = self.config
+        start = self.load_checkpoint()
+        t0 = time.time()
+        for step in range(start, cfg.max_iterations):
+            metrics = self.train_iteration(step)
+            self.step = step + 1
+            if step % cfg.n_tensorboard == 0:
+                self.log_scalars(step, {
+                    "train/loss": float(metrics["loss"]),
+                    "train/psnr": float(metrics["psnr"]),
+                    "train/num_rays": metrics["num_rays"],
+                    "train/n_samples": int(metrics["n_samples"]),
+                    "train/alive_ray_mask": int(metrics["alive_rays"]),
+                    "elapsed_s": time.time() - t0,
+                })
+            if (step + 1) % cfg.n_validation == 0:
+                self.validate(step + 1)
+            if (step + 1) % cfg.n_checkpoint == 0 or step + 1 == cfg.max_iterations:
+                self.save_checkpoint(step + 1)
+
+    # ------------------------------------------------------------------ infra
+    def log_scalars(self, step: int, scalars: dict) -> None:
+        line = json.dumps({"step": step, **scalars})
+        print(line, flush=True)
+        with open(self.log_path, "a") as f:
+            f.write(line + "\n")
+
+    def validate(self, step: int) -> float:
+        """PSNR of view 0 of the validation scene, rendered with the rows
+        marcher at test_chunk_size * min(256, max_steps) samples a chunk."""
+        scene = self.val_scene or self.scene
+        dev = self.device
+        rays = image_rays(torch.as_tensor(scene.K, dtype=torch.float32, device=dev),
+                          torch.as_tensor(scene.camtoworlds[0], dtype=torch.float32,
+                                          device=dev),
+                          scene.height, scene.width, scene.opengl)
+        eval_cfg = dataclasses.replace(self.render_config, march_compaction="rows")
+        rgb, _, _ = render_image_chunked(
+            self.params, self.model_config, self.grid,
+            rays.origins.reshape(-1, 3), rays.viewdirs.reshape(-1, 3), self.aabb,
+            eval_cfg, torch.ones(3, device=dev),
+            eval_buffer_size=self.config.test_chunk_size
+            * min(256, self.render_config.max_steps),
+            device=dev)
+        rgb = rgb.reshape(scene.height, scene.width, 3).cpu().numpy()
+        gt = np.asarray(scene.images[0], np.float32) / 255.0
+        if scene.synthetic:
+            gt = gt[..., :3] * gt[..., 3:4] + np.ones(3) * (1 - gt[..., 3:4])
+        val_psnr = -10.0 * math.log10(float(np.mean((rgb - gt) ** 2)))
+        self.log_scalars(step, {"val/psnr": val_psnr})
+        return val_psnr
+
+    def compose_meta(self) -> dict:
+        cfg = self.config
+        return {
+            "aabb": self.aabb.cpu().tolist(),
+            "unbounded": bool(cfg.unbounded),
+            "grid_resolution": cfg.grid_resolution,
+            "contraction_type": self.contraction,
+            "near_plane": self.near_plane,
+            "far_plane": min(self.far_plane, 1e10),
+            "render_step_size": self.render_step_size,
+            "alpha_thre": 0.0,
+            "cone_angle": cfg.cone_angle,
+            "max_march_steps": int(cfg.max_march_steps),
+            "num_rays": int(self.num_rays),
+            "camera_poses": np.asarray(self.scene.camtoworlds).tolist(),
+            "block_id": self.scene.block_id,
+            "field": "ngp",
+            "model_config": ngp.config_to_meta(self.model_config),
+        }
+
+    def _optimizer_tree(self) -> dict:
+        """Adam moments per parameter (in `ngp.parameters` order) and the
+        update count; the port's own checkpoint keys."""
+        state = [self.optimizer.state.get(p, {}) for p in ngp.parameters(self.params)]
+        if not all(state):
+            return {}
+        return {"exp_avg": [s["exp_avg"] for s in state],
+                "exp_avg_sq": [s["exp_avg_sq"] for s in state],
+                "step": [s["step"] for s in state]}
+
+    def save_checkpoint(self, step: int, score: Optional[float] = None) -> None:
+        state = {
+            "model": {k: self.params[k] for k in ("table", "density_mlp", "color_mlp")},
+            "occupancy": {"occs": self.grid.occs, "binary": self.grid.binary},
+            "optimizer": self._optimizer_tree(),
+        }
+        self.ckpt_manager.save(step, state, self.compose_meta(), score)
+
+    def load_checkpoint(self) -> int:
+        path = self.ckpt_manager.resolve(self.config.ckpt_path)
+        if path is None:
+            return 0
+        flat, meta = load_checkpoint(path)
+        with torch.no_grad():
+            loaded = _params_from_flat(flat, self.device)
+            for dst, src in zip(ngp.parameters(self.params), ngp.parameters(loaded)):
+                dst.copy_(src)
+        if not self.config.no_load_opt and "optimizer::step/0" in flat:
+            for i, p in enumerate(ngp.parameters(self.params)):
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(flat[f"optimizer::step/{i}"])),
+                    **{k: torch.as_tensor(flat[f"optimizer::{k}/{i}"],
+                                          dtype=torch.float32, device=self.device)
+                       for k in ("exp_avg", "exp_avg_sq")}}
+        self.grid = occupancy.occupancy_from_numpy(
+            flat["occupancy::occs"], flat["occupancy::binary"], self.device)
+        self.num_rays = int(meta.get("num_rays", self.num_rays))
+        print(f"resumed from step {meta['step']} (ray bucket {self.num_rays})",
+              flush=True)
+        return int(meta["step"])
+
+
+def _params_from_flat(flat: dict, device) -> ngp.Params:
+    return ngp.params_from_jax({
+        "table": flat["model::table"],
+        "density_mlp": [flat[f"model::density_mlp/{i}"] for i in range(2)],
+        "color_mlp": [flat[f"model::color_mlp/{i}"] for i in range(3)],
+    }, device)
+
+
+def load_field_from_checkpoint(path: str, device=None):
+    """(params, grid, meta, model_config, render_config) from one checkpoint
+    written by either package."""
+    dev = resolve_device(device)
+    flat, meta = load_checkpoint(path)
+    if meta.get("field", "ngp") != "ngp":
+        raise NotImplementedError(f"field {meta['field']!r} is not ported yet")
+    mc = dict(meta.get("model_config", {}))
+    mc.setdefault("unbounded", bool(meta.get("unbounded", False)))
+    model_cfg = ngp.config_from_meta(mc)
+    grid = occupancy.occupancy_from_numpy(flat["occupancy::occs"],
+                                          flat["occupancy::binary"], dev)
+    render_cfg = RenderConfig(
+        contraction=meta["contraction_type"],
+        render_step_size=float(meta["render_step_size"]),
+        near_plane=float(meta.get("near_plane", 0.0) or 0.0),
+        far_plane=float(meta.get("far_plane", 1e10) or 1e10),
+        max_steps=int(meta.get("max_march_steps", 1024)),
+    )
+    return _params_from_flat(flat, dev), grid, meta, model_cfg, render_cfg
