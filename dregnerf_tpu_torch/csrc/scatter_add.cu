@@ -22,6 +22,13 @@
 // from run to run (atomics), so results agree with a sequential sum to
 // f32 rounding, not bit for bit.
 //
+// Alternative rows: a caller may pass a second row set and a one-byte flag
+// on the device; when the flag is nonzero the kernel scatters the second
+// set instead. The run-length backward uses this in place of JAX's
+// `lax.cond` between its run sums and the direct scatter, with no host
+// read and no copy of either set. The grid is sized for the first set and
+// strides over the second when that is longer.
+//
 // Later work (not here): sort by slot or aggregate equal slots within a
 // warp (marched samples are ray-coherent, so coarse levels repeat slots),
 // or fuse the scatter into the 8-corner vertex gradient directly.
@@ -34,37 +41,56 @@
 
 __global__ void scatter_add_rows_f32x4(const int32_t* __restrict__ idx,
                                        const float4* __restrict__ src,
-                                       float* __restrict__ out,
-                                       int64_t n_rows, int groups,
+                                       int64_t n_rows,
+                                       const int32_t* __restrict__ alt_idx,
+                                       const float4* __restrict__ alt_src,
+                                       int64_t alt_rows,
+                                       const uint8_t* __restrict__ take_alt,
+                                       float* __restrict__ out, int groups,
                                        int64_t table_rows) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_rows * groups) return;
-  const int64_t row = t / groups;
-  const int g = (int)(t - row * groups);
-  const int32_t slot = __ldg(idx + row);
-  if (slot < 0 || (int64_t)slot >= table_rows) return;
-  const float4 v = src[t];
-  float* dst = out + ((int64_t)slot * groups + g) * 4;
-  atomicAdd(reinterpret_cast<float4*>(dst), v);
+  if (take_alt != nullptr && *take_alt) {
+    idx = alt_idx;
+    src = alt_src;
+    n_rows = alt_rows;
+  }
+  const int64_t total = n_rows * groups;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += stride) {
+    const int64_t row = t / groups;
+    const int g = (int)(t - row * groups);
+    const int32_t slot = __ldg(idx + row);
+    if (slot < 0 || (int64_t)slot >= table_rows) continue;
+    const float4 v = src[t];
+    float* dst = out + ((int64_t)slot * groups + g) * 4;
+    atomicAdd(reinterpret_cast<float4*>(dst), v);
+  }
 }
 
 extern "C" {
 
 // idx: [n_rows] int32; src: [n_rows, width] f32 (width % 4 == 0, 16-byte
-// aligned); out: [table_rows, width] f32, zeroed by the caller. Launches
-// on `stream` and returns cudaGetLastError() (0 on success).
-int scatter_add_f32(const void* idx, const void* src, void* out,
-                    long long n_rows, int width, long long table_rows,
-                    void* stream) {
+// aligned); alt_idx, alt_src, alt_rows: the alternative rows, alike, and
+// take_alt: a device byte that picks them when nonzero (all three may be
+// null and 0 when there is no alternative); out: [table_rows, width] f32,
+// zeroed by the caller. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int scatter_add_f32(const void* idx, const void* src, long long n_rows,
+                    const void* alt_idx, const void* alt_src,
+                    long long alt_rows, const void* take_alt, void* out,
+                    int width, long long table_rows, void* stream) {
   const int groups = width / 4;
-  const long long total = n_rows * (long long)groups;
+  if (take_alt == nullptr) alt_rows = 0;
+  const long long rows = n_rows > 0 ? n_rows : alt_rows;
+  const long long total = rows * (long long)groups;
   if (total <= 0) return (int)cudaSuccess;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   scatter_add_rows_f32x4<<<(unsigned int)blocks, threads, 0,
                            (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const float4*)src, (float*)out, n_rows, groups,
-      table_rows);
+      (const int32_t*)idx, (const float4*)src, n_rows,
+      (const int32_t*)alt_idx, (const float4*)alt_src, alt_rows,
+      (const uint8_t*)take_alt, (float*)out, groups, table_rows);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Packed buffers (ray-major, depth-ordered): the exclusive per-ray product
 of (1 - alpha) is one global cumsum of log(1 - alpha), with 1 - alpha
 clipped to [1e-10, 1], re-based by each ray's maximum (its first sample);
 composites are segment sums into num_rays + 1 segments (the last one
-collects padding). Row buffers: an axis-1 cumsum and row sums. All f32.
+collects padding). Row buffers: an axis-1 cumsum and row sums. The
+surface field of voxel extraction is max_k T_k alpha_k over a row. All f32.
 """
 from __future__ import annotations
 
@@ -86,3 +87,15 @@ def composite(packed: PackedSamples, rgbs: torch.Tensor, sigmas: torch.Tensor,
         rgb = rgb + (1.0 - opacity)[:, None] * background
     return RenderOutput(rgb=rgb, opacity=opacity, depth=depth, weights=weights,
                         transmittance=trans, alphas=alphas)
+
+
+def surface_field_rows(rows: RowSamples, sigmas: torch.Tensor) -> torch.Tensor:
+    """Per-ray surface field S = max_k (T_k * alpha_k) over row-packed
+    samples; sigmas [R, K] (or [R, K, 1]). Returns [R], >= 0."""
+    sigmas = sigmas.reshape(rows.valid.shape).to(torch.float32)
+    alphas = torch.where(rows.valid, 1.0 - torch.exp(-sigmas * rows.dt), 0.0)
+    log_1ma = torch.log(torch.clamp(1.0 - alphas, 1e-10, 1.0))
+    csum = torch.cumsum(log_1ma, dim=1)
+    excl = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
+    trans = torch.where(rows.valid, torch.exp(excl), 0.0)
+    return torch.clamp((alphas * trans).amax(dim=1), min=0.0)

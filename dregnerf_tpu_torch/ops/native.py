@@ -16,19 +16,26 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# argtypes/restype of each library's C entry points
+# argtypes/restype of each library's C entry points; each takes the stream
+# last and returns its cudaGetLastError()
+_PTR, _ROWS = ctypes.c_void_p, ctypes.c_longlong
+# (idx, src, n_rows, alt_idx, alt_src, alt_rows, take_alt, out, width, table_rows)
+_SCATTER = ([_PTR, _PTR, _ROWS, _PTR, _PTR, _ROWS, _PTR, _PTR, ctypes.c_int, _ROWS, _PTR],
+            ctypes.c_int)
+# (table, idx, out, n_rows, width, table_rows)
+_GATHER = ([_PTR, _PTR, _PTR, _ROWS, ctypes.c_int, _ROWS, _PTR], ctypes.c_int)
 _SIGNATURES = {
-    "scatter_add": {
-        "scatter_add_f32": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_longlong, ctypes.c_int,
-                             ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int),
-    },
+    "scatter_add": {"scatter_add_f32": _SCATTER},
+    "scatter_add_bf16": {"scatter_add_bf16": _SCATTER},
+    "gather_rows": {"gather_rows_f32": _GATHER},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -102,3 +109,21 @@ def load_library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, entry: str, device: torch.device, *args, aligned=()) -> None:
+    """Call C entry point `entry` of library `name` on the current stream of
+    `device`. Each of `args` is a tensor (passed as its data pointer), None
+    (a null pointer) or a number; `aligned` holds (tensor, bytes) pairs
+    that the kernel reads in vectors of that size. Raises if a tensor is
+    misaligned or the launch was refused."""
+    for tensor, nbytes in aligned:
+        if tensor.data_ptr() % nbytes:
+            raise ValueError(f"{entry}: a {tuple(tensor.shape)} {tensor.dtype} tensor is not "
+                             f"aligned to {nbytes} bytes")
+    fn = getattr(load_library(name), entry)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")

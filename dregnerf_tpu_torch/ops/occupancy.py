@@ -6,9 +6,9 @@ space [0, 1]^3. An update evaluates the field at jittered cell positions
 occupied ones by cumsum + searchsorted), takes an EMA-max at those cells
 and thresholds at min(mean, occ_threshold).
 
-The marcher reads `binary` directly; the JAX package's region bitmask
-(`pack_regions`/`query_regions`) is a TPU gather layout with the same
-answer under the linear aabb contraction, and is not ported.
+The marcher reads `binary` directly, with the JAX package's region rule
+(`ops/ray_march.py`); the JAX region bitmask (`pack_regions`,
+`query_regions`) is a TPU gather layout and is not ported.
 """
 from __future__ import annotations
 

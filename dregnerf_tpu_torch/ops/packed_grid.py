@@ -6,24 +6,33 @@ sit at 8 static slot offsets, so a packed table P[t] = concat_o V[(t+o) mod T]
 (8 rolls of the vertex table V) gives every corner of a point in ONE
 [8*F] row per level; trilinear weights then blend them.
 
-The table-gradient backward is selected by `PackedGridConfig.grad_accum`:
-"f32" keeps autograd's own gather backward; "pallas" sends each level's
-gradient through kernel K1 (`ops/scatter_add.py`, the port of the Pallas
-`bucketed_scatter_add`). The other accumulators of the JAX package
-("bf16", "sorted", "sorted_bf16", and the RLE backward `rle_step_u > 0`)
-are still to be ported (ROADMAP.md, queue 1); their forward is the same
-gather, so inference works for every value and only a backward raises.
+The row gather of every level is kernel K2p (`ops/gather_rows.py`). The
+table-gradient backward follows `PackedGridConfig.grad_accum`, as in the
+JAX package:
+  * "f32", "sorted", "pallas": an exact f32 sum-scatter, kernel K1
+    (`ops/scatter_add.py`); the three differ only in summation order;
+  * "bf16", "sorted_bf16": a bf16-accumulating scatter, kernel K1p (the
+    stable sort of "sorted_bf16" keeps each slot's order, so the JAX
+    results of the two are equal);
+  * a level whose expected run of equal slots (`rle_expected_run`) is at
+    least RLE_MIN_RUN, when `rle_step_u > 0`: the run-length backward of
+    `ops/rle.py`, accumulating in bf16 only under grad_accum "bf16" and in
+    f32 for every other value, "sorted_bf16" included (JAX's own rule).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from dregnerf_tpu_torch.ops.scatter_add import scatter_add
+from dregnerf_tpu_torch.ops.gather_rows import gather_rows
+from dregnerf_tpu_torch.ops.rle import rle_scatter_add_safe
+from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
 
-SUPPORTED_GRAD_ACCUM = ("f32", "pallas")
+RLE_MIN_RUN = 4.0  # expected steps per cell below which RLE cannot win
+_RLE_SAFETY = 2.0  # heuristic max_runs = safety * expected runs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,18 +80,6 @@ class PackedGridConfig:
         return int(self.level_table_sizes().sum())
 
 
-def check_backward_supported(config: PackedGridConfig) -> None:
-    """Raise for a table-gradient backward the port does not have yet."""
-    if config.rle_step_u > 0.0:
-        raise NotImplementedError(
-            "the RLE table-gradient backward (rle_step_u > 0) is not ported "
-            "yet; see ROADMAP.md queue 1 (use --no-rle_backward)")
-    if config.grad_accum not in SUPPORTED_GRAD_ACCUM:
-        raise NotImplementedError(
-            f"grad_accum={config.grad_accum!r} is not ported yet; see "
-            f"ROADMAP.md queue 1 (supported: {SUPPORTED_GRAD_ACCUM})")
-
-
 def init_packed_grid(config: PackedGridConfig, generator: torch.Generator | None = None,
                      device: torch.device | str = "cpu") -> torch.Tensor:
     """Vertex table V: [total_rows, F], uniform(-1e-4, 1e-4)."""
@@ -97,21 +94,54 @@ _CORNERS = np.stack(
 ).reshape(8, 3).astype(np.int64)
 
 
-class _GatherScatterK1(torch.autograd.Function):
-    """packed[slot]; the backward sums the row gradients into a fresh
-    [table_rows, 8F] f32 table with kernel K1 (the JAX `_gather_rows_pallas`)."""
+def rle_expected_run(config: PackedGridConfig, level: int) -> float:
+    """Expected consecutive samples per cell at `level` for a march with
+    normalized step `config.rle_step_u` (diagonal worst case)."""
+    if config.rle_step_u <= 0.0:
+        return 0.0
+    scale = float(config.level_scales()[level])
+    return 1.0 / (config.rle_step_u * scale * 1.7320508)
+
+
+def _scatter_bf16_as_f32(idx, g, table_rows):
+    return scatter_add_bf16(idx, g, table_rows).to(torch.float32)
+
+
+def _rle_backward(idx, g, table_rows, max_runs, accum):
+    return rle_scatter_add_safe(idx, g, max_runs, table_rows, accum).to(torch.float32)
+
+
+def level_backward(config: PackedGridConfig, level: int, n: int):
+    """The table-gradient scatter of one level for n rows: a function
+    (slot [n] int32, g [n, 8F] f32, table_rows) -> [table_rows, 8F] f32."""
+    exp_run = rle_expected_run(config, level)
+    if exp_run >= RLE_MIN_RUN:
+        return functools.partial(
+            _rle_backward, max_runs=min(n, int(_RLE_SAFETY * n / exp_run)),
+            accum="bf16" if config.grad_accum == "bf16" else "f32")
+    if config.grad_accum in ("f32", "sorted", "pallas"):
+        return scatter_add
+    if config.grad_accum in ("bf16", "sorted_bf16"):
+        return _scatter_bf16_as_f32
+    raise ValueError(f"unknown grad_accum {config.grad_accum!r}")
+
+
+class _GatherRows(torch.autograd.Function):
+    """packed[slot] through K2p; the backward scatters the row gradients
+    into a fresh [table_rows, 8F] f32 table with `scatter`."""
 
     @staticmethod
-    def forward(ctx, packed, slot):
+    def forward(ctx, packed, slot, scatter):
         ctx.save_for_backward(slot)
         ctx.table_rows = packed.shape[0]
-        return packed.index_select(0, slot)
+        ctx.scatter = scatter
+        return gather_rows(packed, slot)
 
     @staticmethod
     def backward(ctx, g):
         (slot,) = ctx.saved_tensors
-        grad = scatter_add(slot, g.to(torch.float32).contiguous(), ctx.table_rows)
-        return grad, None
+        grad = ctx.scatter(slot, g.to(torch.float32).contiguous(), ctx.table_rows)
+        return grad, None, None
 
 
 def pack_table(table: torch.Tensor, config: PackedGridConfig) -> tuple:
@@ -133,9 +163,6 @@ def packed_encode(packed: tuple, x: torch.Tensor,
                   config: PackedGridConfig) -> torch.Tensor:
     """Encode positions x [..., 3] in [0, 1]^3 (clipped) with the packed
     per-level tables; returns [..., n_levels * F] f32."""
-    needs_grad = torch.is_grad_enabled() and any(p.requires_grad for p in packed)
-    if needs_grad:
-        check_backward_supported(config)
     batch_shape = x.shape[:-1]
     x = x.reshape(-1, 3).to(torch.float32).clamp(0.0, 1.0)
     n = x.shape[0]
@@ -167,12 +194,8 @@ def packed_encode(packed: tuple, x: torch.Tensor,
     mask = (1 << config.log2_table_size) - 1
     outs = []
     for l in range(L):
-        slot = (lin[:, l] & mask) if wrapped[l] else lin[:, l]
-        if config.grad_accum == "pallas" and needs_grad:
-            rows = _GatherScatterK1.apply(packed[l], slot.to(torch.int32))
-        else:
-            rows = packed[l][slot]
-        rows = rows.reshape(n, 8, F)
+        slot = ((lin[:, l] & mask) if wrapped[l] else lin[:, l]).to(torch.int32).contiguous()
+        rows = _GatherRows.apply(packed[l], slot, level_backward(config, l, n)).reshape(n, 8, F)
         outs.append(torch.einsum("nc,ncf->nf", w[:, l], rows))
     out = torch.stack(outs, dim=1)  # [N, L, F]
     return out.reshape(*batch_shape, L * F)

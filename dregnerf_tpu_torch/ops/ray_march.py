@@ -6,20 +6,25 @@ either each ray's first K survivors packed back to back into one buffer
 (`march_rays`, compaction "capped", the training marcher) or laid out as
 [R, K] rows (`march_rays_rows`, validation).
 
-The occupancy test reads `grid.binary` at each step's cell. The JAX
-marcher reads a region bitmask instead, which gives the same answer under
-the linear "aabb" contraction; under "un_bounded_sphere" it reads cells
-beyond the region margin as occupied, which this port does not mirror yet,
-so that contraction raises here (ROADMAP.md queue 3). The "compact" and
-"quota" compactions and per-ray `t_max` are still to be ported.
+The occupancy test mirrors the JAX marcher's region read without its
+packed bitmask: steps go in groups, and a step's cell reads `grid.binary`
+when it lies in the 8^3-cell region around the supercell of its group's
+middle step, and reads occupied otherwise. Under the linear "aabb"
+contraction at the trainer's step convention every cell lies in its
+region, so this is the plain binary read; under "un_bounded_sphere", or
+with steps coarser than the convention, far cells read occupied, as in
+JAX. A per-ray `t_max` cuts each ray's far end (the surface pass of voxel
+extraction). The "compact" and "quota" compactions are still to be ported.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from dregnerf_tpu_torch.geometry.cameras import ray_aabb_intersect
+from dregnerf_tpu_torch.ops.contraction import contract
 from dregnerf_tpu_torch.ops.occupancy import OccupancyGrid
 
 _BIG = 1 << 30
@@ -54,31 +59,58 @@ def _jitter(num_rays, stratified, generator, jitter, device) -> torch.Tensor:
     return torch.zeros(num_rays, 1, device=device)
 
 
+def _group_size(max_steps: int, resolution: int) -> int:
+    """Steps per region group, as both JAX marchers size it: the steps that
+    cross 3.5 cells at the step convention (aabb diagonal / max_steps), at
+    most 32, decremented until it divides max_steps."""
+    steps_per_cell = max_steps / (resolution * 1.7320508)
+    group = min(max(math.floor(3.5 * steps_per_cell) + 1, 1), 32)
+    while max_steps % group:
+        group -= 1
+    return group
+
+
+def _contracted_axes(origins, viewdirs, t_mid, aabb, contraction):
+    """The three contracted coordinates [R, S] of every step midpoint."""
+    if contraction == "aabb":  # one axis at a time: [R, S] temporaries
+        lo, ext = aabb[:3], aabb[3:] - aabb[:3]
+        return [(origins[:, k, None] + viewdirs[:, k, None] * t_mid - lo[k]) / ext[k]
+                for k in range(3)]
+    pos = origins[:, None, :] + viewdirs[:, None, :] * t_mid[..., None]
+    return contract(pos, aabb, contraction).unbind(-1)
+
+
 def _candidate_mask(origins, viewdirs, grid: OccupancyGrid, aabb, contraction,
-                    render_step_size, max_steps, near_plane, far_plane, jitter):
+                    render_step_size, max_steps, near_plane, far_plane, t_max, jitter):
     """(mask [R, S] bool, t_lo [R]): steps whose midpoint is inside the ray's
-    box interval and in an occupied cell."""
-    if contraction != "aabb":
-        raise NotImplementedError(
-            f"marching under contraction {contraction!r} is not ported yet "
-            "(ROADMAP.md queue 3)")
+    box interval (cut at t_max) and reads occupied."""
     t_lo, t_hi = ray_aabb_intersect(origins, viewdirs, aabb, near_plane, far_plane)
+    if t_max is not None:
+        t_hi = torch.minimum(t_hi, t_max)
+    num_rays = origins.shape[0]
     steps = torch.arange(max_steps, dtype=torch.float32, device=origins.device)[None, :]
     ts = t_lo[:, None] + (steps + jitter) * render_step_size  # [R, S]
     t_mid = ts + 0.5 * render_step_size
 
     res = grid.resolution
-    lo, ext = aabb[:3], aabb[3:] - aabb[:3]
-    in_range = None
-    flat = None
-    for k in range(3):  # one axis at a time: [R, S] temporaries, not [R, S, 3]
-        pos = origins[:, k, None] + viewdirs[:, k, None] * t_mid
-        v = (pos - lo[k]) / ext[k] * res
+    if res % 4:
+        raise ValueError(f"occupancy resolution must be divisible by 4, got {res}")
+    group = _group_size(max_steps, res)
+    in_range = in_region = flat = None
+    for u in _contracted_axes(origins, viewdirs, t_mid, aabb, contraction):
+        v = torch.floor(u * res)
         ok = (v >= 0) & (v < res)
-        c = torch.floor(v).clamp(0, res - 1).to(torch.int64)
+        c = v.clamp(0, res - 1).to(torch.int32)
+        # the region of a group: cells [4 sc - 2, 4 sc + 6) around the
+        # supercell sc of its middle step's cell
+        cg = c.view(num_rays, max_steps // group, group)
+        sc = (cg[:, :, group // 2] >> 2).clamp(0, res // 4 - 1)
+        local = cg - (4 * sc - 2)[..., None]
+        inside = ((local >= 0) & (local < 8)).view(num_rays, max_steps)
         in_range = ok if in_range is None else in_range & ok
-        flat = c if flat is None else flat * res + c
-    occupied = grid.binary.reshape(-1)[flat] & in_range
+        in_region = inside if in_region is None else in_region & inside
+        flat = c.long() if flat is None else flat * res + c
+    occupied = (grid.binary.reshape(-1)[flat] | ~in_region) & in_range
     alive = (t_mid < t_hi[:, None]) & (t_lo < t_hi)[:, None]
     return occupied & alive, t_lo
 
@@ -96,18 +128,19 @@ def _first_survivors(mask: torch.Tensor, k: int):
 def march_rays_rows(origins, viewdirs, grid: OccupancyGrid, aabb, contraction: str,
                     render_step_size: float, k_per_ray: int, max_steps: int,
                     near_plane: float = 0.0, far_plane: float = 1e10,
-                    stratified: bool = False, generator: torch.Generator | None = None,
+                    t_max: torch.Tensor | None = None, stratified: bool = False,
+                    generator: torch.Generator | None = None,
                     jitter: torch.Tensor | None = None) -> RowSamples:
     """Row-packed marching: each ray's first `k_per_ray` surviving steps.
 
-    Stratified jitter is an explicit [R, 1] tensor, or drawn from
-    `generator` when `stratified`.
+    `t_max` [R] optionally cuts each ray's far end. Stratified jitter is an
+    explicit [R, 1] tensor, or drawn from `generator` when `stratified`.
     """
     num_rays = origins.shape[0]
     jitter = _jitter(num_rays, stratified, generator, jitter, origins.device)
     mask, t_lo = _candidate_mask(origins, viewdirs, grid, aabb, contraction,
                                  render_step_size, max_steps, near_plane,
-                                 far_plane, jitter)
+                                 far_plane, t_max, jitter)
     src, valid = _first_survivors(mask, k_per_ray)
     t0 = torch.where(valid, t_lo[:, None] + (src.to(torch.float32) + jitter)
                      * render_step_size, 0.0)
@@ -125,7 +158,8 @@ def row_sample_positions(rows: RowSamples, origins, viewdirs):
 def march_rays(origins, viewdirs, grid: OccupancyGrid, aabb, contraction: str,
                render_step_size: float, buffer_size: int, max_steps: int,
                near_plane: float = 0.0, far_plane: float = 1e10,
-               stratified: bool = False, generator: torch.Generator | None = None,
+               t_max: torch.Tensor | None = None, stratified: bool = False,
+               generator: torch.Generator | None = None,
                jitter: torch.Tensor | None = None, compaction: str = "capped",
                k_cap: int | None = None) -> PackedSamples:
     """March rays into a packed buffer of `buffer_size` samples.
@@ -133,7 +167,8 @@ def march_rays(origins, viewdirs, grid: OccupancyGrid, aabb, contraction: str,
     compaction "capped": each ray's first `k_cap` survivors (default
     min(256, max_steps, buffer_size)), packed back to back at the exclusive
     cumsum of the per-ray counts and cut at the buffer; ray-major and
-    depth-ordered, as the compositor needs.
+    depth-ordered, as the compositor needs. `t_max` [R] optionally cuts
+    each ray's far end.
     """
     if compaction != "capped":
         raise NotImplementedError(
@@ -143,7 +178,7 @@ def march_rays(origins, viewdirs, grid: OccupancyGrid, aabb, contraction: str,
     jitter = _jitter(num_rays, stratified, generator, jitter, dev)
     mask, t_lo = _candidate_mask(origins, viewdirs, grid, aabb, contraction,
                                  render_step_size, max_steps, near_plane,
-                                 far_plane, jitter)
+                                 far_plane, t_max, jitter)
     k_cap = min(k_cap or 256, max_steps, buffer_size)
     steps_rk, valid_rk = _first_survivors(mask, k_cap)
     del mask

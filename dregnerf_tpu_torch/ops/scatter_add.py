@@ -1,40 +1,101 @@
-"""K1: f32 sum-scatter of rows into a fresh table, `zeros.index_add(idx, src)`.
+"""Sum-scatters of rows into a fresh table: K1 (f32) and K1p (bf16).
 
-Replaces dregnerf_tpu/ops/pallas_scatter.py::bucketed_scatter_add, the
+K1, `scatter_add`: `zeros[T, W] f32 .index_add(idx, src)`. Replaces
+dregnerf_tpu/ops/pallas_scatter.py::bucketed_scatter_add, the
 table-gradient backward of every packed-grid encoder level under
-grad_accum="pallas". The kernel is csrc/scatter_add.cu: one thread per
-(row, 4 floats), f32 atomics into the table, no sort. It is bounded by
-memory traffic, roughly N * (4 + 4W) bytes read plus the atomic
-read-modify-writes and the table_rows * 4W bytes zeroed; the 128 MB
-tables of levels 1-3 do not fit in the H100's 50 MB L2.
+grad_accum "f32", "sorted" and "pallas", and the scatter of the run sums
+of a run-length-compressed level with an f32 accumulator. The kernel is
+csrc/scatter_add.cu: one thread per (row, 4 floats), f32 atomics into the
+table, no sort.
 
-`scatter_add` launches the kernel for CUDA tensors (or raises) and takes
-the plain version only for CPU tensors. `scatter_add.launches` counts
-kernel launches.
+K1p, `scatter_add_bf16`: `zeros[T, W] bf16`, then `out[idx[i]] +=
+bf16(src[i])` with a bf16 add, in the table's own type. Replaces
+scripts/perf/probe_pallas_scatter.py::pallas_scatter_add, whose meaning
+is JAX's `zeros(bf16).at[idx].add(src.astype(bf16))`: the backward of
+grad_accum "bf16" and "sorted_bf16", and the scatter of the run sums of a
+run-length-compressed level under "bf16". The kernel is
+csrc/scatter_add_bf16.cu: one thread per (row, pair of features), one
+`atomicAdd` on `__nv_bfloat162`.
+
+Both are bounded by memory traffic: N * (4 + 4W) bytes of idx and src
+read, the table written (4W or 2W bytes a row); the 2^19-row tables of
+levels 1-3 do not fit in the H100's 50 MB L2. Rows whose index lies
+outside [0, table_rows) are skipped by the kernels and the plain versions
+alike (the run-length backward pads its unused runs with such an index).
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes
+its plain version only for CPU tensors; `<wrapper>.launches` counts
+kernel launches. Both take an optional second row set and a device flag
+that picks it, decided inside the kernel: the run-length backward's
+choice between its run sums and the direct scatter (`ops/rle.py`).
 """
 from __future__ import annotations
 
 import torch
 
+from dregnerf_tpu_torch.ops.native import launch
+
+
+def _in_range_or_dump(idx: torch.Tensor, table_rows: int) -> torch.Tensor:
+    """idx as int64, with out-of-range indices sent to the extra row
+    `table_rows` that scatter_add_plain allocates and drops."""
+    slot = idx.long()
+    return torch.where((slot >= 0) & (slot < table_rows), slot, table_rows)
+
 
 def scatter_add_plain(idx: torch.Tensor, src: torch.Tensor,
                       table_rows: int) -> torch.Tensor:
-    """Plain PyTorch version: zeros([table_rows, W]).index_add_(0, idx, src).
-    idx must lie in [0, table_rows)."""
-    out = torch.zeros(table_rows, src.shape[1], dtype=torch.float32,
+    """Plain PyTorch version of K1: zeros([table_rows, W]).index_add_(0,
+    idx, src), skipping rows whose index is out of range."""
+    out = torch.zeros(table_rows + 1, src.shape[1], dtype=torch.float32,
                       device=src.device)
-    return out.index_add_(0, idx.long(), src.to(torch.float32))
+    out.index_add_(0, _in_range_or_dump(idx, table_rows), src.to(torch.float32))
+    return out[:table_rows]
 
 
-def _check(idx: torch.Tensor, src: torch.Tensor, table_rows: int) -> None:
+def scatter_add_bf16_plain(idx: torch.Tensor, src: torch.Tensor,
+                           table_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of K1p, bit for bit JAX's serial bf16 scatter:
+    each addend rounded to bf16, each add rounded to bf16, the adds of one
+    slot in index order. (`index_add_` on a bf16 tensor sums in f32 and
+    rounds once, which is another function.)
+
+    Rows are stable-sorted by slot; the r-th row of every slot is added in
+    round r, and the slots of one round are distinct."""
+    w = src.shape[1]
+    dev = src.device
+    keep = (idx >= 0) & (idx < table_rows)  # skipped rows take no round
+    slot = idx[keep].long()
+    addend = src[keep].to(torch.bfloat16).to(torch.float32)  # bf16 values, exact in f32
+    acc = torch.zeros(table_rows, w, dtype=torch.bfloat16, device=dev)
+    n = slot.shape[0]
+    if n == 0:
+        return acc
+    order = torch.argsort(slot, stable=True)
+    sorted_slot = slot[order]
+    pos = torch.arange(n, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = sorted_slot[1:] != sorted_slot[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values  # within its slot
+    by_round = order[torch.argsort(rank, stable=True)]
+    start = 0
+    for count in torch.bincount(rank).tolist():
+        rows = by_round[start:start + count]
+        start += count
+        s = slot[rows]
+        acc[s] = (acc[s].to(torch.float32) + addend[rows]).to(torch.bfloat16)
+    return acc
+
+
+def _check(idx: torch.Tensor, src: torch.Tensor, table_rows: int, multiple: int) -> None:
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError(f"idx must be 1-D int32, got {idx.dtype} {tuple(idx.shape)}")
     if src.dtype != torch.float32 or src.dim() != 2:
         raise TypeError(f"src must be 2-D float32, got {src.dtype} {tuple(src.shape)}")
     if src.shape[0] != idx.shape[0]:
         raise ValueError(f"{idx.shape[0]} indices for {src.shape[0]} rows")
-    if src.shape[1] % 4:
-        raise ValueError(f"row width must be a multiple of 4, got {src.shape[1]}")
+    if src.shape[1] % multiple:
+        raise ValueError(f"row width must be a multiple of {multiple}, got {src.shape[1]}")
     if not (idx.is_contiguous() and src.is_contiguous()):
         raise ValueError("idx and src must be contiguous")
     if idx.device != src.device:
@@ -43,31 +104,82 @@ def _check(idx: torch.Tensor, src: torch.Tensor, table_rows: int) -> None:
         raise ValueError(f"table_rows must be positive, got {table_rows}")
 
 
-def scatter_add(idx: torch.Tensor, src: torch.Tensor,
-                table_rows: int) -> torch.Tensor:
-    """Sum `src` rows [N, W] f32 into a new [table_rows, W] f32 table at
-    rows `idx` [N] int32 (in [0, table_rows); the kernel skips others)."""
-    _check(idx, src, table_rows)
-    if src.device.type == "cpu":
-        return scatter_add_plain(idx, src, table_rows)
-    if src.device.type != "cuda":
-        raise ValueError(f"scatter_add runs on cuda or cpu, not {src.device}")
-    from dregnerf_tpu_torch.ops.native import load_library
+def _chosen(idx, src, alt):
+    """The rows a wrapper scatters: (idx, src), or alt's rows when its flag
+    is set. On the CPU the flag is read on the host."""
+    if alt is not None and bool(alt[0]):
+        return alt[1], alt[2]
+    return idx, src
 
-    lib = load_library("scatter_add")
-    out = torch.zeros(table_rows, src.shape[1], dtype=torch.float32,
-                      device=src.device)
-    if idx.shape[0] == 0:
+
+def _check_alt(alt, src: torch.Tensor, table_rows: int, multiple: int) -> None:
+    take_alt, alt_idx, alt_src = alt
+    _check(alt_idx, alt_src, table_rows, multiple)
+    if take_alt.dtype != torch.bool or take_alt.numel() != 1:
+        raise TypeError(f"the flag must be one bool, got {take_alt.dtype} "
+                        f"{tuple(take_alt.shape)}")
+    if take_alt.device != src.device or alt_src.device != src.device:
+        raise ValueError("the alternative rows and their flag must lie on src's device")
+    if alt_src.shape[1] != src.shape[1]:
+        raise ValueError(f"alternative rows of width {alt_src.shape[1]}, not {src.shape[1]}")
+
+
+def _scatter(name: str, entry: str, multiple: int, dtype: torch.dtype, idx, src,
+             table_rows: int, alt) -> torch.Tensor | None:
+    """Check the inputs; on the CPU return None (the caller takes its plain
+    version); on the card launch the kernel into a fresh zero table."""
+    _check(idx, src, table_rows, multiple)
+    if alt is not None:
+        _check_alt(alt, src, table_rows, multiple)
+    if src.device.type == "cpu":
+        return None
+    if src.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {src.device}")
+    out = torch.zeros(table_rows, src.shape[1], dtype=dtype, device=src.device)
+    take_alt, alt_idx, alt_src = alt if alt is not None else (None, None, None)
+    if idx.shape[0] == 0 and (alt is None or alt_idx.shape[0] == 0):
         return out
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.scatter_add_f32(idx.data_ptr(), src.data_ptr(),
-                                  out.data_ptr(), idx.shape[0], src.shape[1],
-                                  table_rows, stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_add kernel launch failed: CUDA error {err}")
+    # a thread reads `multiple` floats of a src row and adds them to as
+    # many elements of the table
+    aligned = [(src, 4 * multiple), (out, out.element_size() * multiple)]
+    if alt is not None:
+        aligned.append((alt_src, 4 * multiple))
+    launch(name, entry, src.device, idx, src, idx.shape[0], alt_idx, alt_src,
+           0 if alt is None else alt_idx.shape[0], take_alt, out, src.shape[1], table_rows,
+           aligned=aligned)
+    return out
+
+
+def scatter_add(idx: torch.Tensor, src: torch.Tensor, table_rows: int,
+                alt=None) -> torch.Tensor:
+    """K1: sum `src` rows [N, W] f32 (W % 4 == 0) into a new
+    [table_rows, W] f32 table at rows `idx` [N] int32.
+
+    `alt`, (take_alt [] or [1] bool, alt_idx [M] int32, alt_src [M, W] f32)
+    on src's device: scatter those rows instead when take_alt is true, a
+    choice the kernel makes on the device (no host read)."""
+    out = _scatter("scatter_add", "scatter_add_f32", 4, torch.float32, idx, src, table_rows, alt)
+    if out is None:
+        return scatter_add_plain(*_chosen(idx, src, alt), table_rows)
     scatter_add.launches += 1
     return out
 
 
+def scatter_add_bf16(idx: torch.Tensor, src: torch.Tensor, table_rows: int,
+                     alt=None) -> torch.Tensor:
+    """K1p: add `src` rows [N, W] f32 (W even), each rounded to bf16, into
+    a new [table_rows, W] bf16 table at rows `idx` [N] int32, with bf16
+    adds; `alt` as in `scatter_add`. Returns the bf16 table; callers cast
+    it (the kernel's atomics add a slot's rows in a varying order, so on
+    the card the result agrees with the serial order within the rounding
+    of each add)."""
+    out = _scatter("scatter_add_bf16", "scatter_add_bf16", 2, torch.bfloat16, idx, src,
+                   table_rows, alt)
+    if out is None:
+        return scatter_add_bf16_plain(*_chosen(idx, src, alt), table_rows)
+    scatter_add_bf16.launches += 1
+    return out
+
+
 scatter_add.launches = 0
+scatter_add_bf16.launches = 0

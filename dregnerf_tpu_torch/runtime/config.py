@@ -1,10 +1,10 @@
 """Argparse flags of the NGP trainer (copy of the flags of
-dregnerf_tpu/runtime/config.py that the trainer reads: same names and
-defaults), plus `--device`.
+dregnerf_tpu/runtime/config.py that the trainer and the evaluator read:
+same names and defaults), plus `--device`.
 
-The port supports `--grad_accum f32|pallas` with `--no-rle_backward`, and
-`--march_compaction capped`; the other values keep the reference's names
-and defaults and raise NotImplementedError when training starts.
+Every `--grad_accum` value trains, with or without `--rle_backward`. Of
+the training marchers only `--march_compaction capped` (the default) is
+ported; the others raise NotImplementedError when training starts.
 """
 from __future__ import annotations
 
@@ -45,12 +45,13 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--no_bf16", dest="bf16", action="store_false")
     p.add_argument("--grad_accum", type=str, default="bf16",
                    choices=["f32", "bf16", "sorted", "sorted_bf16", "pallas"],
-                   help="table-gradient accumulator; 'pallas' = kernel K1 "
-                   "(csrc/scatter_add.cu), 'f32' = autograd's gather backward")
+                   help="table-gradient accumulator: f32, sorted and pallas sum "
+                   "in f32 (kernel K1, csrc/scatter_add.cu), bf16 and sorted_bf16 "
+                   "in bf16 (kernel K1p, csrc/scatter_add_bf16.cu)")
     p.add_argument("--rle_backward", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="run-length-compressed table gradient (not ported "
-                   "yet: pass --no-rle_backward)")
+                   help="run-length-compressed table gradient at coarse "
+                   "encoder levels (ops/rle.py)")
     p.add_argument("--march_compaction", type=str, default="capped",
                    choices=["compact", "capped", "quota", "rows"])
     p.add_argument("--device", type=str, default=None,

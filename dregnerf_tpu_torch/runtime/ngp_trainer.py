@@ -2,8 +2,9 @@
 
 One step: sample pixels, blend synthetic RGBA over a random background,
 generate rays, march + render with stratified jitter, Huber loss over the
-alive rays, backward (the table gradient goes through kernel K1 under
-grad_accum="pallas"), Adam (lr 1e-2, eps 1e-15) under the x0.33
+alive rays, backward (the table gradient goes through kernel K1 or K1p
+and, at coarse levels, the run-length backward, as `grad_accum` and
+`rle_backward` say; ops/packed_grid.py), Adam (lr 1e-2, eps 1e-15) under the x0.33
 multistep schedule at {1/2, 3/4, 9/10} of training. Every 16 steps the
 occupancy grid gets an EMA update (all cells below step 256). The ray
 bucket follows the sample budget in powers of two, from a count read back
@@ -33,7 +34,7 @@ from dregnerf_tpu_torch.geometry.cameras import image_rays, rays_from_pixels
 from dregnerf_tpu_torch.models import ngp
 from dregnerf_tpu_torch.ops import occupancy
 from dregnerf_tpu_torch.ops.contraction import contract_inv
-from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig, check_backward_supported
+from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig
 from dregnerf_tpu_torch.render.renderer import (
     RenderConfig,
     render_image_chunked,
@@ -184,7 +185,6 @@ class NGPTrainer:
             grid=PackedGridConfig(grad_accum=cfg.grad_accum, rle_step_u=rle_step_u),
             unbounded=cfg.unbounded,
             compute_dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
-        check_backward_supported(self.model_config.grid)  # fail before training
         init_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.params = ngp.init_ngp(self.model_config, init_gen, self.device)
         for p in ngp.parameters(self.params):

@@ -10,7 +10,13 @@ Without a CUDA device every test skips (a CUDA kernel has no CPU mode).
 import pytest
 import torch
 
-from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_plain
+from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+from dregnerf_tpu_torch.ops.scatter_add import (
+    scatter_add,
+    scatter_add_bf16,
+    scatter_add_bf16_plain,
+    scatter_add_plain,
+)
 
 
 @pytest.fixture
@@ -18,6 +24,12 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def _slots(table_rows, n, run, generator, device):
+    """n slots in runs of `run` equal slots, like marched samples."""
+    starts = torch.randint(0, table_rows, (-(-n // run),), generator=generator, device=device)
+    return starts.repeat_interleave(run)[:n].to(torch.int32).contiguous()
 
 
 @pytest.mark.cuda
@@ -52,3 +64,121 @@ def test_scatter_add_kernel_skips_out_of_range_rows(cuda_device):
     want = torch.zeros(8, 4)
     want[[0, 5, 3]] = 1.0
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_rows,run", [(4096, 1), (4096, 37), (1 << 19, 1), (1 << 19, 7)])
+def test_scatter_add_bf16_kernel_matches_plain_per_slot(cuda_device, table_rows, run):
+    """K1p at the main path's shapes. The atomics add a slot's k rows in a
+    varying order, each add rounding to bf16 (at most 2^-9 of the partial
+    sum), so per slot |kernel - plain| <= 2^-8 k sum|src| over its rows."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    n, w = 1 << 18, 64
+    idx = _slots(table_rows, n, run, g, cuda_device)
+    src = torch.randn(n, w, generator=g, device=cuda_device)
+    before = scatter_add_bf16.launches
+    got = scatter_add_bf16(idx, src, table_rows)
+    torch.cuda.synchronize()
+    assert scatter_add_bf16.launches == before + 1 and got.dtype == torch.bfloat16
+    want = scatter_add_bf16_plain(idx, src, table_rows)
+    k = torch.bincount(idx.long(), minlength=table_rows).float()[:, None]
+    abs_sum = torch.zeros(table_rows, w, device=cuda_device).index_add_(0, idx.long(), src.abs())
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2.0**-8 * k * abs_sum).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_scatter_add_bf16_kernel_skips_out_of_range_rows(cuda_device):
+    idx = torch.tensor([0, 5, -1, 8, 3, 1 << 20], dtype=torch.int32, device=cuda_device)
+    src = torch.full((6, 4), 1.5, device=cuda_device)
+    got = scatter_add_bf16(idx, src, 8).float().cpu()
+    want = torch.zeros(8, 4)
+    want[[0, 5, 3]] = 1.5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_rows", [4096, 1 << 19])
+@pytest.mark.parametrize("width", [16, 32, 64])
+@pytest.mark.parametrize("run", [1, 37])
+def test_gather_rows_kernel_equals_index_select(cuda_device, table_rows, width, run):
+    """K2p copies rows: bit for bit index_select."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    n = 1 << 18
+    table = torch.randn(table_rows, width, generator=g, device=cuda_device)
+    idx = _slots(table_rows, n, run, g, cuda_device)
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+def _bf16_slot_bound(idx, src, table_rows):
+    """2^-8 k sum|src| per slot hit k times, over the in-range rows."""
+    keep = (idx >= 0) & (idx < table_rows)
+    slot = idx[keep].long()
+    k = torch.bincount(slot, minlength=table_rows).float()[:, None]
+    abs_sum = torch.zeros(table_rows, src.shape[1], device=src.device).index_add_(
+        0, slot, src[keep].abs())
+    return 2.0**-8 * k * abs_sum
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("take_alt", [False, True])
+def test_scatter_kernels_scatter_the_rows_their_flag_picks(cuda_device, bf16, take_alt):
+    """The run-length backward's shapes at level 0: 23,039 run rows (the
+    last ones padded with slot -1) or, when the flag on the device is set,
+    the 2^18 direct rows. One launch either way; the result is the plain
+    version of the rows picked (K1: 1e-5 of max |out|; K1p: per slot)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n, runs, w, table_rows = 1 << 18, 23039, 64, 4096
+    run_idx = _slots(table_rows, runs, 1, g, cuda_device)
+    run_idx[runs // 3:] = -1
+    run_src = torch.randn(runs, w, generator=g, device=cuda_device)
+    idx = _slots(table_rows, n, 37, g, cuda_device)
+    src = torch.randn(n, w, generator=g, device=cuda_device)
+    alt = (torch.tensor(take_alt, device=cuda_device), idx, src)
+    picked = (idx, src) if take_alt else (run_idx, run_src)
+    kernel = scatter_add_bf16 if bf16 else scatter_add
+    before = kernel.launches
+    got = kernel(run_idx, run_src, table_rows, alt=alt)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    if bf16:
+        err = (got.float() - scatter_add_bf16_plain(*picked, table_rows).float()).abs()
+        assert bool((err <= _bf16_slot_bound(*picked, table_rows)).all()), float(err.max())
+    else:
+        want = scatter_add_plain(*picked, table_rows)
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["fits", "overflow"])
+def test_rle_safe_scatter_on_the_card_matches_the_cpu(cuda_device, accum, case):
+    """ops/rle.py::rle_scatter_add_safe on the card against the CPU on the
+    same rows, both branches of its device-side choice: f32 within 1e-5 of
+    max |cumsum| (the run sums are differences of a cumsum, as in
+    test_torch_rle.py); bf16 within 2^-7 k sum|rows| per slot of the rows
+    scattered (the run sums differ in their last f32 bits between the
+    devices, so an add may round to the neighbouring bf16 value), plus the
+    f32 term."""
+    from dregnerf_tpu_torch.ops import rle
+
+    g = torch.Generator().manual_seed(4)
+    n, w, table_rows = 1 << 16, 64, 4096
+    idx = _slots(table_rows, n, 37, g, "cpu")
+    vals = torch.randn(n, w, generator=g)
+    n_runs = 1 + int((idx[1:] != idx[:-1]).sum())
+    max_runs = n_runs + 5 if case == "fits" else n_runs // 2
+    want = rle.rle_scatter_add_safe(idx, vals, max_runs, table_rows, accum).float()
+    got = rle.rle_scatter_add_safe(idx.to(cuda_device), vals.to(cuda_device), max_runs,
+                                   table_rows, accum).float().cpu()
+    tol = 1e-5 * vals.cumsum(0).abs().max().item()
+    if accum == "bf16":
+        run_idx, run_sum, _ = rle.run_length_segment_sum(idx, vals, max_runs)
+        rows = (run_idx, run_sum) if case == "fits" else (idx, vals)
+        tol = 2.0 * _bf16_slot_bound(*rows, table_rows) + tol
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())

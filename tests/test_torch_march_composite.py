@@ -1,7 +1,8 @@
-"""Port parity: the capped and row marchers, the compositors and
+"""Port parity: the capped and row marchers (aabb and un_bounded_sphere,
+with and without a per-ray t_max), the compositors, the surface field and
 render_rays against the JAX package, with the jitter drawn by jax.random
 as the JAX marcher draws it and handed to the port. Integer fields exact,
-times within 1e-5, composites within 2e-5."""
+times within 1e-5 (1e-6 where stated), composites within 2e-5."""
 import dataclasses
 import math
 
@@ -83,11 +84,81 @@ def test_row_march_matches_jax(scene):
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
 
 
-def test_unbounded_contraction_raises_in_marcher(scene):
-    _, tgrid, o, d, _ = scene
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "un_bounded_sphere", STEP,
-                          1 << 12, STEPS)
+def _shell_grid(radius_cells):
+    """Occupied cells only far from the centre: a shell of the grid."""
+    c = (np.arange(RES) + 0.5) - RES / 2
+    r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2)
+    return r > radius_cells
+
+
+@pytest.mark.parametrize("occupied", ["shell", "none"])
+@pytest.mark.parametrize("marcher", ["capped", "rows"])
+def test_unbounded_contraction_matches_jax(scene, marcher, occupied):
+    """Under un_bounded_sphere, steps 4x coarser than the step convention
+    make groups span more than the 8-cell region, so far cells read
+    occupied in JAX. With no cell occupied, every sample comes from that
+    conservative read; with a shell occupied, it adds to the real ones.
+    Equal sample sets, t_start within 1e-6."""
+    _, _, o, d, jitter = scene
+    binary = _shell_grid(10.0) if occupied == "shell" else np.zeros((RES,) * 3, bool)
+    jgrid = jocc.init_grid(RES)._replace(binary=jnp.asarray(binary))
+    tgrid = tocc.occupancy_from_numpy(np.zeros(RES**3, np.float32), binary)
+    step = 4.0 * STEP
+    if marcher == "rows":
+        want = jmarch.march_rays_rows(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
+                                      "un_bounded_sphere", step, 48, STEPS, stratified=True,
+                                      key=jax.random.PRNGKey(7))
+        got = tmarch.march_rays_rows(_t(o), _t(d), tgrid, _t(AABB), "un_bounded_sphere",
+                                     step, 48, STEPS, jitter=_t(jitter))
+    else:
+        want = jmarch.march_rays(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
+                                 "un_bounded_sphere", step, 1 << 13, STEPS, stratified=True,
+                                 key=jax.random.PRNGKey(7), compaction="capped", k_cap=64)
+        got = tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "un_bounded_sphere", step,
+                                1 << 13, STEPS, jitter=_t(jitter), k_cap=64)
+        np.testing.assert_array_equal(got.ray_id.numpy(), np.asarray(want.ray_id))
+    assert int(got.num_samples) == int(want.num_samples) > 0
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_allclose(got.t_start.numpy(), np.asarray(want.t_start), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("marcher", ["capped", "rows"])
+def test_t_max_march_matches_jax(scene, marcher):
+    """A per-ray far cut, as the surface pass of extraction marches from a
+    camera to a point: equal sample sets, t_start within 1e-5."""
+    jgrid, tgrid, o, d, jitter = scene
+    t_max = np.random.default_rng(5).uniform(2.0, 4.5, RAYS).astype(np.float32)
+    if marcher == "rows":
+        want = jmarch.march_rays_rows(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
+                                      "aabb", STEP, 24, STEPS, t_max=jnp.asarray(t_max))
+        got = tmarch.march_rays_rows(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, 24, STEPS,
+                                     t_max=_t(t_max))
+        full = tmarch.march_rays_rows(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, 24, STEPS)
+    else:
+        want = jmarch.march_rays(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
+                                 "aabb", STEP, 1 << 13, STEPS, t_max=jnp.asarray(t_max),
+                                 compaction="capped", k_cap=64)
+        got = tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, 1 << 13, STEPS,
+                                t_max=_t(t_max), k_cap=64)
+        full = tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, 1 << 13, STEPS,
+                                 k_cap=64)
+    assert 0 < int(got.num_samples) == int(want.num_samples) < int(full.num_samples)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_allclose(got.t_start.numpy(), np.asarray(want.t_start), rtol=0, atol=1e-5)
+
+
+def test_surface_field_rows_matches_jax(scene):
+    """S = max_k T_k alpha_k per ray, within 1e-6."""
+    jgrid, _, o, d, _ = scene
+    rows = jmarch.march_rays_rows(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
+                                  "aabb", STEP, 24, STEPS)
+    sigmas = np.random.default_rng(6).uniform(0.0, 60.0, (RAYS, 24)).astype(np.float32)
+    want = jcomp.surface_field_rows(rows, jnp.asarray(sigmas))
+    trows = tmarch.RowSamples(t_start=_t(rows.t_start), dt=rows.dt, valid=_t(rows.valid),
+                              num_samples=_t(rows.num_samples))
+    got = tcomp.surface_field_rows(trows, _t(sigmas))
+    assert got.shape == (RAYS,) and float(got.max()) > 0.1
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
 
 
 def test_packed_composite_matches_jax(scene):

@@ -1,6 +1,7 @@
-"""Port parity: the packed-grid encoder (forward, and the table gradient
-under grad_accum "pallas" through K1's plain version on the CPU) against
-the JAX package, plus the config meta round trip."""
+"""Port parity: the packed-grid encoder (forward through K2p's plain
+version, and the table gradient under every grad_accum, with and without
+the run-length backward, through K1's and K1p's plain versions on the
+CPU) against the JAX package, plus the config meta round trip."""
 import dataclasses
 import json
 
@@ -79,15 +80,89 @@ def test_config_meta_round_trips_between_packages():
     assert back.compute_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("kw", [dict(grad_accum="bf16"), dict(grad_accum="sorted"),
-                                dict(grad_accum="sorted_bf16"),
-                                dict(grad_accum="pallas", rle_step_u=0.003)])
-def test_unported_backwards_raise_but_forward_works(kw):
-    cfg = TPG.PackedGridConfig(**dict(CONFIGS["dense"], **kw))
-    table, x = _inputs(CONFIGS["dense"])
-    v = torch.as_tensor(table)
-    with torch.no_grad():  # inference of a JAX-trained block needs no backward
-        TPG.packed_encode(TPG.pack_table(v, cfg), torch.as_tensor(x), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPG.packed_encode(TPG.pack_table(v.requires_grad_(True), cfg),
-                          torch.as_tensor(x), cfg)
+def _ray_points(n_rays=16, n_steps=32, step=0.01, seed=2):
+    """Ray-ordered sample positions, as a marcher emits them: coarse
+    levels see runs of equal slots."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.1, 0.9, (n_rays, 1, 3))
+    d = rng.normal(size=(n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.arange(n_steps)[None, :, None] * step
+    return np.clip(o + d * t, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+
+
+def _level_slots(cfg, x, level):
+    """The slots of one level, as packed_encode computes them."""
+    scale = cfg.level_scales()[level]
+    res = int(cfg.level_resolutions()[level])
+    cell = np.clip(np.floor(x * scale + 0.5).astype(np.int64), 0, res - 2)
+    lin = cell[:, 0] * res * res + cell[:, 1] * res + cell[:, 2]
+    return lin & ((1 << cfg.log2_table_size) - 1) if cfg.level_wrapped()[level] else lin
+
+
+BF16_ACCUM = ("bf16", "sorted_bf16")
+
+
+@pytest.mark.parametrize("points", ["random", "rays_fit", "rays_no_rle"])
+@pytest.mark.parametrize("accum", ["f32", "sorted", "pallas", "bf16", "sorted_bf16"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_every_backward_matches_jax(name, accum, points, monkeypatch):
+    """dV of sum(encode^2) for every grad_accum, with the run-length
+    backward on (rle_step_u = 0.01: every level of "dense" and level 0 of
+    "wrapped" take it) or off. "random" points overflow max_runs, so the
+    RLE levels take the direct-scatter fallback; ray-ordered points fit.
+
+    Tolerances: f32 accumulators 1e-5 of max |dV|. bf16 accumulators, per
+    packed-table slot hit k times by rows of cotangent g: 2^-7 (k + 1)
+    sum|g|, one bf16 rounding step of each of the k + 1 roundings (the k
+    addends and the k adds), since the two packages' cotangents differ by
+    f32 rounding and may round to neighbouring bf16 values; plus 1e-6 of
+    sum|g| over all rows for the f32 cumsum of the run sums. The slot
+    bound is carried to dV through the transpose of pack_table."""
+    rle_u = 0.0 if points == "rays_no_rle" else 0.01
+    kw = dict(CONFIGS[name], grad_accum=accum, rle_step_u=rle_u)
+    table, _ = _inputs(CONFIGS[name], seed=1)
+    x = (np.random.default_rng(3).uniform(size=(512, 3)).astype(np.float32)
+         if points == "random" else _ray_points())
+    jcfg, tcfg = JPG.PackedGridConfig(**kw), TPG.PackedGridConfig(**kw)
+    if rle_u:  # level 0 takes RLE; its run count fits max_runs on rays only
+        slots = _level_slots(jcfg, x, 0)
+        n_runs = 1 + int(np.sum(slots[1:] != slots[:-1]))
+        max_runs = int(2.0 * len(x) / JPG.rle_expected_run(jcfg, 0))
+        assert JPG.rle_expected_run(jcfg, 0) >= JPG.RLE_MIN_RUN
+        assert (n_runs <= max_runs) == (points == "rays_fit"), (n_runs, max_runs)
+
+    def jloss(v):
+        return jnp.sum(JPG.packed_encode(JPG.pack_table(v, jcfg), jnp.asarray(x), jcfg) ** 2)
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(table)))
+    seen = {}  # level -> (slot, g, table_rows) of its backward
+    real_level_backward = TPG.level_backward
+
+    def spy(config, level, n):
+        scatter = real_level_backward(config, level, n)
+
+        def recorded(slot, g, table_rows):
+            seen[level] = (slot.long(), g, table_rows)
+            return scatter(slot, g, table_rows)
+        return recorded
+
+    monkeypatch.setattr(TPG, "level_backward", spy)
+    v = torch.as_tensor(table).requires_grad_(True)
+    (TPG.packed_encode(TPG.pack_table(v, tcfg), torch.as_tensor(x), tcfg) ** 2).sum().backward()
+    assert v.grad.dtype == torch.float32 and len(seen) == tcfg.n_levels
+    got = v.grad.numpy()
+    if accum not in BF16_ACCUM:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+        return
+    total = sum(float(g.abs().sum()) for _, g, _ in seen.values())
+    slot_tol = []
+    for slot, g, rows in (seen[level] for level in range(tcfg.n_levels)):
+        k = torch.bincount(slot, minlength=rows).to(torch.float32)[:, None]
+        abs_sum = torch.zeros(rows, g.shape[1]).index_add_(0, slot, g.abs())
+        slot_tol.append(2.0**-7 * (k + 1.0) * abs_sum + 1e-6 * total)
+    vt = torch.zeros_like(v).requires_grad_(True)
+    sum((p * t).sum() for p, t in zip(TPG.pack_table(vt, tcfg), slot_tol)).backward()
+    tol = vt.grad.numpy()
+    err = np.abs(got - want)
+    assert np.all(err <= tol), float((err / np.maximum(tol, 1e-30)).max())

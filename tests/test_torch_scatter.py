@@ -46,3 +46,30 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
 def test_wrapper_rejects_bad_inputs(idx, src, rows, err):
     with pytest.raises(err):
         scatter_add(idx, src, rows)
+
+
+@pytest.mark.parametrize("take_alt", [False, True])
+def test_cpu_wrapper_scatters_the_rows_its_flag_picks(take_alt):
+    """With `alt`, the wrapper scatters the alternative rows when the flag
+    is true and its own rows otherwise, exactly as the plain version of
+    the rows picked."""
+    rng = np.random.default_rng(2)
+    idx = torch.as_tensor(rng.integers(-1, 64, 50).astype(np.int32))
+    src = torch.as_tensor(rng.normal(size=(50, 8)).astype(np.float32))
+    alt_idx = torch.as_tensor(rng.integers(0, 64, 300).astype(np.int32))
+    alt_src = torch.as_tensor(rng.normal(size=(300, 8)).astype(np.float32))
+    out = scatter_add(idx, src, 64, alt=(torch.tensor(take_alt), alt_idx, alt_src))
+    want = scatter_add_plain(*((alt_idx, alt_src) if take_alt else (idx, src)), 64)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("flag,alt_src,err", [
+    (torch.tensor(1), torch.zeros(3, 8), TypeError),  # the flag is not a bool
+    (torch.tensor([True, False]), torch.zeros(3, 8), TypeError),  # nor one value
+    (torch.tensor(True), torch.zeros(3, 4), ValueError),  # another width
+    (torch.tensor(True), torch.zeros(2, 8), ValueError),  # rows and indices differ
+])
+def test_wrapper_rejects_bad_alternative_rows(flag, alt_src, err):
+    alt = (flag, torch.zeros(3, dtype=torch.int32), alt_src)
+    with pytest.raises(err):
+        scatter_add(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 8), 8, alt=alt)

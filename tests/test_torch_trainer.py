@@ -1,8 +1,10 @@
 """Port parity for the slice as a whole: one training step against a JAX
 reference built from the JAX package's public functions with the draws
-`_make_step_fn` makes, Adam and the LR schedule against optax, a tiny
-CPU training run, checkpoints crossing between the packages both ways,
-the device policy, the fixture data and the CLI twin."""
+`_make_step_fn` makes (f32 under grad_accum "pallas", and at the CLI
+defaults: grad_accum "bf16" with the run-length backward, bf16 and f32
+MLPs), Adam and the LR schedule against optax, a tiny CPU training run,
+checkpoints crossing between the packages both ways, the device policy,
+the fixture data and the CLI twin at its defaults."""
 import math
 import os
 import types
@@ -19,6 +21,7 @@ from dregnerf_tpu.datasets.base import load_scene_blocks
 from dregnerf_tpu.geometry.cameras import rays_from_pixels
 from dregnerf_tpu.models import ngp as jngp
 from dregnerf_tpu.ops import occupancy as jocc
+from dregnerf_tpu.ops import packed_grid as JPG
 from dregnerf_tpu.ops.packed_grid import PackedGridConfig as JGrid
 from dregnerf_tpu.render.renderer import RenderConfig as JRenderConfig
 from dregnerf_tpu.render.renderer import render_rays as jrender_rays
@@ -29,12 +32,14 @@ from dregnerf_tpu_torch import train_ngp_nerf as tcli
 from dregnerf_tpu_torch.datasets import fixtures as tfix
 from dregnerf_tpu_torch.models import ngp as tngp
 from dregnerf_tpu_torch.ops import occupancy as tocc
+from dregnerf_tpu_torch.ops import packed_grid as TPG
 from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig as TGrid
 from dregnerf_tpu_torch.render import renderer as trender
 from dregnerf_tpu_torch.runtime import ngp_trainer as TT
 from dregnerf_tpu_torch.runtime.config import config_parser as tconfig_parser
 
 GRID = dict(n_levels=2, log2_table_size=10, base_resolution=4, per_level_scale=2.0)
+STEPS = 64  # march steps of the one-step tests
 AABB = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
 
 
@@ -59,17 +64,23 @@ def _shrink(trainer, seed=0):
     trainer.setup_optimizer()
 
 
-def test_one_step_matches_jax_reference():
+def _one_step(grid_kw, bf16=False, monkeypatch=None):
+    """One training step of both packages on the same weights, grid and
+    draws: a JAX reference built from the JAX package's public functions
+    with the draws `_make_step_fn` makes at step 5, and the port's
+    `step_loss` + backward. With `monkeypatch`, the port's per-level
+    table-gradient scatters are recorded as (slot, g, table_rows)."""
     scene = tfix.make_scene_data("train", num_views=8, image_size=24)
-    jcfg = jngp.NGPConfig(grid=JGrid(**GRID, grad_accum="pallas"), compute_dtype=jnp.float32)
-    tcfg = tngp.NGPConfig(grid=TGrid(**GRID, grad_accum="pallas"), compute_dtype=torch.float32)
+    jcfg = jngp.NGPConfig(grid=JGrid(**GRID, **grid_kw),
+                          compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    tcfg = tngp.NGPConfig(grid=TGrid(**GRID, **grid_kw),
+                          compute_dtype=torch.bfloat16 if bf16 else torch.float32)
     jparams = jngp.init_ngp(jax.random.PRNGKey(0), jcfg)
     jparams["table"] = jparams["table"] * 1000.0
     binary = np.random.default_rng(0).uniform(size=(16,) * 3) < 0.6
     jgrid = jocc.init_grid(16)._replace(binary=jnp.asarray(binary))
-    steps = 64
-    rkw = dict(render_step_size=2 * math.sqrt(3) / steps, buffer_size=1 << 12,
-               max_steps=steps, march_compaction="capped", k_cap=min(512, steps))
+    rkw = dict(render_step_size=2 * math.sqrt(3) / STEPS, buffer_size=1 << 12,
+               max_steps=STEPS, march_compaction="capped", k_cap=min(512, STEPS))
     num_rays, aabb = 256, np.asarray(AABB, np.float32)
     images, c2ws, K = scene.images, scene.camtoworlds, scene.K
     H, W = scene.height, scene.width
@@ -98,6 +109,19 @@ def test_one_step_matches_jax_reference():
 
     (loss, (n_samples, sq)), grads = jax.value_and_grad(jloss, has_aux=True)(jparams)
 
+    seen = {}  # level -> (slot, g, table_rows) of the port's table-gradient scatter
+    if monkeypatch is not None:
+        real_level_backward = TPG.level_backward
+
+        def spy(config, level, n):
+            scatter = real_level_backward(config, level, n)
+
+            def recorded(slot, g, table_rows):
+                seen[level] = (slot.long(), g, table_rows)
+                return scatter(slot, g, table_rows)
+            return recorded
+
+        monkeypatch.setattr(TPG, "level_backward", spy)
     tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     for p in tngp.parameters(tparams):
         p.requires_grad_(True)
@@ -108,16 +132,71 @@ def test_one_step_matches_jax_reference():
         torch.as_tensor(images), torch.as_tensor(c2ws), torch.as_tensor(K), draws,
         synthetic=True, opengl=True)
     tloss.backward()
-
-    assert int(metrics["n_samples"]) == int(n_samples) > 0
-    np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-4)
-    np.testing.assert_allclose(metrics["psnr"].item(), float(mse_to_psnr(sq)), rtol=1e-4)
     jg = jax.tree_util.tree_map(np.asarray, grads)
-    want_all = [jg["table"], *jg["density_mlp"], *jg["color_mlp"]]
-    for i, (p, want) in enumerate(zip(tngp.parameters(tparams), want_all)):
+    return types.SimpleNamespace(
+        loss=float(loss), n_samples=int(n_samples), psnr=float(mse_to_psnr(sq)),
+        grads=[jg["table"], *jg["density_mlp"], *jg["color_mlp"]],
+        tloss=tloss.item(), tn_samples=int(metrics["n_samples"]),
+        tpsnr=metrics["psnr"].item(), tgrads=[p.grad.numpy() for p in tngp.parameters(tparams)],
+        tcfg=tcfg, seen=seen)
+
+
+def test_one_step_matches_jax_reference():
+    r = _one_step(dict(grad_accum="pallas"))
+    assert r.tn_samples == r.n_samples > 0
+    np.testing.assert_allclose(r.tloss, r.loss, rtol=1e-4)
+    np.testing.assert_allclose(r.tpsnr, r.psnr, rtol=1e-4)
+    for i, (got, want) in enumerate(zip(r.tgrads, r.grads)):
         scale = np.abs(want).max()
         assert scale > 0
-        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4, atol=1e-4 * scale,
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=f"gradient {i}")
+
+
+def _bf16_table_tolerance(r, slack):
+    """Per vertex-table entry: the bound of a bf16-accumulated scatter,
+    carried through the transpose of pack_table. A packed slot hit k times
+    by rows of cotangent g gets (k + 1) * slack * sum|g|: each of the k
+    addends and k adds rounds by at most 2^-9 of its partial sum, and the
+    two packages' cotangents differ by the rounding of the step before the
+    scatter (`slack` >= 2^-8 covers both)."""
+    tcfg = r.tcfg.grid
+    tols = []
+    for level in range(tcfg.n_levels):
+        slot, g, rows = r.seen[level]
+        k = torch.bincount(slot, minlength=rows).to(torch.float32)[:, None]
+        abs_sum = torch.zeros(rows, g.shape[1]).index_add_(0, slot, g.abs())
+        tols.append((k + 1.0) * slack * abs_sum)
+    vt = torch.zeros(tcfg.total_rows, tcfg.n_features, requires_grad=True)
+    sum((p * t).sum() for p, t in zip(TPG.pack_table(vt, tcfg), tols)).backward()
+    return vt.grad.numpy()
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16_mlp", "f32_mlp"])
+def test_one_step_at_cli_defaults_matches_jax(bf16, monkeypatch):
+    """The trainer's CLI defaults: grad_accum "bf16" with the run-length
+    backward (rle_step_u as the trainer sets it, so level 0 takes RLE and
+    level 1 the bf16 scatter K1p), with bf16 MLPs (the default) and f32.
+
+    Tolerances: equal sample counts; loss and PSNR 1e-3 relative; the
+    table gradient per entry within the bf16 scatter bound
+    (`_bf16_table_tolerance`); the MLP gradients 1e-4 of their max in f32
+    and 1e-2 under bf16 operands, whose roundings differ between the
+    packages (a bf16 ulp is 2^-8 relative)."""
+    rle_u = (2 * math.sqrt(3) / STEPS) / 2.0  # the trainer's rle_step_u for this box
+    r = _one_step(dict(grad_accum="bf16", rle_step_u=rle_u), bf16, monkeypatch)
+    assert JPG.rle_expected_run(JGrid(**GRID, rle_step_u=rle_u), 0) >= JPG.RLE_MIN_RUN
+    assert JPG.rle_expected_run(JGrid(**GRID, rle_step_u=rle_u), 1) < JPG.RLE_MIN_RUN
+    assert r.tn_samples == r.n_samples > 0
+    np.testing.assert_allclose(r.tloss, r.loss, rtol=1e-3)
+    np.testing.assert_allclose(r.tpsnr, r.psnr, rtol=1e-3)
+    got, want = r.tgrads[0], r.grads[0]
+    tol = _bf16_table_tolerance(r, 2.0**-7 if bf16 else 2.0**-8)
+    err = np.abs(got - want)
+    assert np.abs(want).max() > 0 and np.all(err <= tol), float((err / np.maximum(tol, 1e-30)).max())
+    for i, (got, want) in enumerate(zip(r.tgrads[1:], r.grads[1:]), start=1):
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=(1e-2 if bf16 else 1e-4) * scale,
                                    err_msg=f"gradient {i}")
 
 
@@ -264,11 +343,14 @@ def test_fixture_scene_matches_the_jax_loader(tmp_path):
 
 
 def test_cli_twin_trains_from_disk(tmp_path):
+    """The CLI twin at its defaults (bf16 MLPs, grad_accum "bf16", the
+    run-length backward): no flag of the accumulator is needed."""
     root = str(tmp_path / "data")
     tfix.make_scene(root, num_views=8, image_size=16)
-    argv = ["--root_dir", root, "--scene", "fixture_scene", "--device", "cpu",
-            *_tiny_argv(str(tmp_path / "out"), steps=2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # the bf16 default
-        tcli.main([a for a in argv if a not in ("pallas", "--grad_accum")])
-    tcli.main(argv)
-    assert os.path.exists(os.path.join(str(tmp_path / "out"), "tiny", "model", "model.ckpt"))
+    tiny = [a for a in _tiny_argv(str(tmp_path / "out"), steps=2)
+            if a not in ("--no_bf16", "--grad_accum", "pallas", "--no-rle_backward")]
+    tcli.main(["--root_dir", root, "--scene", "fixture_scene", "--device", "cpu", *tiny])
+    path = os.path.join(str(tmp_path / "out"), "tiny", "model", "model.ckpt")
+    _, _, meta, model_cfg, _ = TT.load_field_from_checkpoint(path, device="cpu")
+    assert meta["step"] == 2 and model_cfg.compute_dtype == torch.bfloat16
+    assert model_cfg.grid.grad_accum == "bf16" and model_cfg.grid.rle_step_u > 0
