@@ -6,12 +6,16 @@
 Phases, in order; any failure exits non-zero:
   1. the device: require CUDA, print the card's name and power limit;
   2. the build: compile every kernel of dregnerf_tpu_torch/csrc (one nvcc
-     each, all started together);
+     each, all started together), and check in `cuobjdump -sass` that K1p
+     issues one 16-byte bf16x8 reduction per 8 features;
   3. each kernel against its plain version at the main path's shapes
      (2^18 rows of 64 floats; tables of 4096 and 2^19 rows), with times,
      the memory-traffic bound and the one-call library time: K1 (f32
-     scatter, ops/scatter_add.py), K1p (bf16 scatter, same module) and K2p
-     (row gather, ops/gather_rows.py);
+     scatter, ops/scatter_add.py), K1p (bf16 scatter, same module; per
+     slot on random data, bit for bit on small integers; also its device
+     time in the profiler and the wrapper's host time a call, and level 0's
+     run-length call with its run count on the device) and
+     K2p (row gather, ops/gather_rows.py);
   4. small-input references: one tiny training step on the card against
      the same step on the CPU, under grad_accum "pallas" in f32 and at the
      CLI defaults (bf16 MLPs, grad_accum "bf16", the run-length backward on
@@ -31,7 +35,8 @@ Phases, in order; any failure exits non-zero:
      and the artifacts written), and a second surface pass over the same
      points for its rate and the scores;
   7. training under grad_accum "pallas" without the run-length backward
-     (64 steps): K1 must launch 4 times a step;
+     (64 steps): K1 must launch 4 times a step; then K1p's device time at
+     each case of phase 3, the kernel alone in torch.profiler;
   8. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
@@ -39,9 +44,11 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -54,8 +61,9 @@ TRAIN_STEPS = 64
 STEADY = range(49, TRAIN_STEPS)  # after the last occupancy update in the run, at step 48
 PROFILE_STEPS = 8  # after TRAIN_STEPS, before the next occupancy update
 PROFILE_TOP = 15
+PROFILE_PAD_S = 0.1  # host seconds around a profiled window's launches (device_ms)
 # the __global__ functions of dregnerf_tpu_torch/csrc
-PORT_KERNELS = ("scatter_add_rows_f32x4", "scatter_add_rows_bf16x2", "gather_rows_f32x4")
+PORT_KERNELS = ("scatter_add_rows_f32x4", "scatter_add_rows_bf16x8", "gather_rows_f32x4")
 PALLAS_STEPS = 64
 EXTRACT_STEPS = 1024  # the default-trained block is extracted at this step
 N_ROWS, WIDTH = 1 << 18, 64  # rows of one encoder level's gather or scatter a step
@@ -104,9 +112,11 @@ def run_slots(torch, rows: int, run: int, g) -> "torch.Tensor":
 
 
 def per_step(results: dict, levels) -> dict:
-    """Sum of one call per encoder level of (ms, plain_ms, library_ms, bound_ms)."""
-    sums = [sum(results[lv][i] for lv in levels) for i in range(4)]
-    return dict(zip(("ms", "plain_ms", "library_ms", "bound_ms"), sums))
+    """Sum of one call per encoder level of (ms, plain_ms, library_ms,
+    bound_ms[, host_us])."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "host_us")
+    width = len(results[levels[0]])
+    return {key: sum(results[lv][i] for lv in levels) for i, key in enumerate(keys[:width])}
 
 
 def k1_phase(torch, dev) -> dict:
@@ -142,64 +152,192 @@ def k1_phase(torch, dev) -> dict:
     return dict(out, max_abs_err=max_err)
 
 
-def k1p_phase(torch, dev) -> dict:
-    """K1p against its plain version (the serial bf16 scatter) at K1's
-    shapes, plus level 0's call on the default path: the scatter of the
-    run sums of runs of 37 at 4096 rows (max_runs rows, past n_runs padded
-    with the skipped slot -1), with the 2^18 direct rows as the alternative
-    that the device-side flag of `rle_scatter_add_safe` would pick on an
-    overflow. Per slot hit k times, |kernel - plain| <= 2^-8 k sum|src|
-    (each bf16 add rounds by at most 2^-9 of its partial sum, in another
-    order). The bound counts idx read, the src rows of in-range slots read
-    and the bf16 table written (the caller's cast to f32 is not counted)."""
+def device_ms(torch, fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
+    """Mean device milliseconds a launch of the kernels whose name starts
+    with `kernel`, over `iters` calls of fn() in torch.profiler (the kernel
+    alone: no zero fill, no host time). A warm-up cycle of `iters` calls
+    precedes the recorded one, whose every launch must be seen.
+
+    The profiler drops device events that fall outside its window on the
+    host's clock, and the card's timestamps can sit off that clock by most
+    of a millisecond (0.73 ms seen on the H100): without a margin the last
+    launches of a short window are lost. So the host sleeps PROFILE_PAD_S
+    on each side of the launches of both cycles; a session that still
+    misses a launch is run again, up to `attempts` sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(PROFILE_PAD_S)
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.key.startswith(kernel)]
+        launched = sum(e.count for e in events)
+        if launched == iters:
+            return sum(e.self_device_time_total for e in events) / launched / 1e3
+        print(f"profiler saw {launched} {kernel} launches in {iters} calls; again", flush=True)
+    raise RuntimeError(f"check failed: profiler saw {launched} {kernel} launches in {iters} "
+                       f"calls in each of {attempts} sessions")
+
+
+def host_us(torch, fn, iters: int = 200, rounds: int = 5) -> float:
+    """Host microseconds of one call of fn(): the time to enqueue `iters`
+    calls, the device left to finish after the clock stops; the median of
+    `rounds` such means (the host's clock varies more than the device's)."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        means.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(means)
+
+
+def k1p_inputs(torch, src, slots: dict) -> dict:
+    """K1p's five cases on the rows `src`: {(table rows, run): (idx, rows,
+    keyword arguments)}. Four scatter src at the slots of KERNEL_CASES; the
+    fifth is level 0's call on the default path as ops/rle.py makes it: the
+    run sums of src at the slots of runs of 37 at 4096 rows (max_runs rows,
+    past n_runs padded with the skipped slot -1), bounded by the run count
+    on the device, with the 2^18 direct rows as the alternative that the
+    device-side flag of `rle_scatter_add_safe` would pick on an overflow."""
     from dregnerf_tpu_torch.ops.packed_grid import RLE_MIN_RUN
     from dregnerf_tpu_torch.ops.rle import run_length_segment_sum
+
+    inputs = {case: (slots[case], src, {}) for case in KERNEL_CASES}
+    # level 0 on the default path: expected run 22.76 (PERF.md), max_runs = 2 N / 22.76
+    check(22.76 >= RLE_MIN_RUN, "level 0 takes the run-length backward")
+    level0 = slots[(4096, 37)]
+    max_runs = int(2 * N_ROWS / 22.76)
+    run_idx, run_sum, n_runs = run_length_segment_sum(level0, src, max_runs)
+    check(int(n_runs) <= max_runs, f"level 0: {int(n_runs)} runs over max_runs {max_runs}")
+    inputs[(4096, "rle")] = (run_idx, run_sum.contiguous(),
+                             {"alt": (n_runs > max_runs, level0, src), "count": n_runs})
+    return inputs
+
+
+def k1p_phase(torch, dev) -> dict:
+    """K1p against its plain version (the serial bf16 scatter) at the five
+    cases of k1p_inputs, on two sets of rows.
+
+    Random rows: per slot hit k times, |kernel - plain| <= 2 ((1 +
+    2^-8)^(k-1) - 1) sum|src|, as each of the k - 1 rounded bf16 adds is off
+    by at most 2^-8 of its exact sum, in the kernel's order and in the
+    serial one (tests/test_torch_scatter_bf16.py holds every order of the
+    serial adds to it). Rows of integers in {-1, 0, 1}: bit for bit, since
+    every partial sum of a slot, in any order, is an integer within
+    +-256 (checked), which bf16 holds exactly; so a lost or repeated add
+    shows even where k is large and the bound wide.
+
+    Each case of the random rows is timed back to back (ms) and by the
+    wrapper's host time a call (host_us); k1p_device_phase adds the kernel
+    alone in the profiler. The bound counts idx and src of the rows
+    scattered (the in-range rows, up to the count) read and the bf16 table
+    written (the caller's cast to f32 is not counted)."""
     from dregnerf_tpu_torch.ops.scatter_add import scatter_add_bf16, scatter_add_bf16_plain
 
     g = torch.Generator(device=dev).manual_seed(1)
     src = torch.randn(N_ROWS, WIDTH, generator=g, device=dev)
-    inputs = {case: (run_slots(torch, *case, g), src, None) for case in KERNEL_CASES}
-    # level 0 on the default path: expected run 22.76 (PERF.md), max_runs = 2 N / 22.76
-    check(22.76 >= RLE_MIN_RUN, "level 0 takes the run-length backward")
-    level0 = inputs[(4096, 37)][0]
-    max_runs = int(2 * N_ROWS / 22.76)
-    run_idx, run_sum, n_runs = run_length_segment_sum(level0, src, max_runs)
-    check(int(n_runs) <= max_runs, f"level 0: {int(n_runs)} runs over max_runs {max_runs}")
-    inputs[(4096, "rle")] = (run_idx, run_sum.contiguous(), (n_runs > max_runs, level0, src))
-    results, max_err, worst = {}, 0.0, 0.0
-    for (rows, run), (idx, x, alt) in inputs.items():
+    slots = {case: run_slots(torch, *case, g) for case in KERNEL_CASES}
+    ints = torch.randint(-1, 2, (N_ROWS, WIDTH), generator=g, device=dev).float()
+    reach = 0.0
+    for (rows, run), (idx, x, kw) in k1p_inputs(torch, ints, slots).items():
+        valid = idx >= 0
+        slot, v = idx[valid].long(), x[valid]
+        for part in (v.clamp(min=0), (-v).clamp(min=0)):
+            reach = max(reach, torch.zeros(rows, WIDTH, device=dev).index_add_(0, slot, part)
+                        .max().item())
+        check(reach <= 256, f"K1p rows={rows} run={run}: integer partial sums reach {reach}")
+        check(torch.equal(scatter_add_bf16(idx, x, rows, **kw),
+                          scatter_add_bf16_plain(idx, x, rows)),
+              f"K1p rows={rows} run={run}: not bit for bit on integer rows")
+    print(f"K1p bit for bit with its plain version on integer rows in {{-1, 0, 1}} at every "
+          f"case (a slot's partial sums within +-{reach:.0f})", flush=True)
+    inputs = k1p_inputs(torch, src, slots)
+    results, calls, max_err, worst = {}, {}, 0.0, 0.0
+    for (rows, run), (idx, x, kw) in inputs.items():
         valid = idx >= 0
         n_valid = int(valid.sum())
-        got = scatter_add_bf16(idx, x, rows, alt=alt)
+        got = scatter_add_bf16(idx, x, rows, **kw)
         want = scatter_add_bf16_plain(idx, x, rows)  # the flag is false: the runs fit
         torch.cuda.synchronize()
         k = torch.bincount(idx[valid].long(), minlength=rows).float()[:, None]
         abs_sum = torch.zeros(rows, WIDTH, device=dev).index_add_(0, idx[valid].long(),
                                                                   x[valid].abs())
-        tol = 2.0**-8 * k * abs_sum
+        tol = 2.0 * torch.expm1(math.log1p(2.0**-8) * (k - 1).clamp(min=0)) * abs_sum
         err = (got.float() - want.float()).abs()
         check(bool((err <= tol).all()), f"K1p rows={rows} run={run}: error over the slot bound")
         ratio = (err / tol.clamp(min=1e-30)).max().item()
         max_err, worst = max(max_err, err.max().item()), max(worst, ratio)
         lib_idx, lib_src = idx[:n_valid].long(), x[:n_valid]  # in-range rows lead
         check(bool(valid[:n_valid].all()), "in-range rows lead")
-        ms = cuda_ms(lambda: scatter_add_bf16(idx, x, rows, alt=alt))
+
+        call = calls[(rows, run)] = functools.partial(scatter_add_bf16, idx, x, rows, **kw)
+        ms = cuda_ms(call)
+        h_us = host_us(torch, call)
         plain_ms = cuda_ms(lambda: scatter_add_bf16_plain(idx, x, rows), iters=5, warmup=1)
         lib_ms = cuda_ms(lambda: torch.zeros(rows, WIDTH, dtype=torch.bfloat16, device=dev)
                          .index_add_(0, lib_idx, lib_src.bfloat16()))
-        bound = bound_ms(idx.numel() * 4 + n_valid * WIDTH * 4 + rows * WIDTH * 2,
-                         n_valid * WIDTH)
-        results[(rows, run)] = (ms, plain_ms, lib_ms, bound)
+        bound = bound_ms(n_valid * 4 + n_valid * WIDTH * 4 + rows * WIDTH * 2, n_valid * WIDTH)
+        results[(rows, run)] = (ms, plain_ms, lib_ms, bound, h_us)
         print(f"K1p table_rows={rows} run={run} ({idx.numel()} rows, {n_valid} in range): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 index_add_ {lib_ms:.4f} ms, "
-              f"bound {bound:.4f} ms (bytes), max abs err {err.max().item():.3e}, worst "
-              f"err/slot bound {ratio:.4f}", flush=True)
+              f"kernel {ms:.4f} ms back to back, {h_us:.2f} us host a call; plain "
+              f"{plain_ms:.4f} ms, bf16 index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes), max abs err {err.max().item():.3e}, worst err/slot bound "
+              f"{ratio:.4f}", flush=True)
     levels = [(4096, "rle")] + STEP_LEVELS[1:]
     out = per_step(results, levels)
-    print(f"K1p per step (level 0 run sums + levels 1-3): kernel {out['ms']:.4f} ms, plain "
+    print(f"K1p per step (level 0 run sums + levels 1-3): kernel {out['ms']:.4f} ms back to "
+          f"back, {out['host_us']:.2f} us host; plain "
           f"{out['plain_ms']:.4f} ms, bf16 index_add_ {out['library_ms']:.4f} ms, bound "
           f"{out['bound_ms']:.4f} ms", flush=True)
-    return dict(out, max_abs_err=max_err, worst_tol_ratio=worst)
+    cases = [dict(zip(("table_rows", "run", "ms", "plain_ms", "library_ms", "bound_ms",
+                       "host_us"), (rows, run, *r)))
+             for (rows, run), r in results.items()]
+    return dict(out, max_abs_err=max_err, worst_tol_ratio=worst, cases=cases, calls=calls)
+
+
+def k1p_device_phase(torch, k1p: dict) -> None:
+    """K1p's device ms a call, the kernel alone in torch.profiler (no zero
+    fill, no host time), for each case of k1p_phase and summed per step
+    (into k1p["device_ms"]). It runs after every host-timed phase, so that
+    no profiler session precedes a host timing."""
+    calls = k1p.pop("calls")
+    by_case = {(c["table_rows"], c["run"]): c for c in k1p["cases"]}
+    for (rows, run), case in by_case.items():
+        case["device_ms"] = device_ms(torch, calls[(rows, run)], "scatter_add_rows_bf16")
+        print(f"K1p table_rows={rows} run={run}: {case['device_ms']:.4f} ms device (kernel "
+              f"alone)", flush=True)
+    k1p["device_ms"] = sum(by_case[lv]["device_ms"] for lv in [(4096, "rle")] + STEP_LEVELS[1:])
+    print(f"K1p per step (level 0 run sums + levels 1-3): {k1p['device_ms']:.4f} ms device",
+          flush=True)
+
+
+def k1p_sass_phase() -> str:
+    """The reductions K1p's built library issues, from `cuobjdump -sass`:
+    exactly one 16-byte vector reduction of eight bf16 values (one per 8
+    features of a row), and no other atomic or reduction. Returns its line."""
+    from dregnerf_tpu_torch.ops import native
+
+    cuobjdump = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(native.library_path("scatter_add_bf16"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    ops = [line.split(";")[0].strip() for line in sass.splitlines()
+           if "RED" in line or "ATOM" in line]
+    check(len(ops) == 1 and "REDG.E.ADD.BF16x8" in ops[0],
+          f"K1p should issue one REDG.E.ADD.BF16x8 and no other reduction: {ops}")
+    print(f"K1p SASS (cuobjdump -sass): {ops[0]}", flush=True)
+    return ops[0]
 
 
 def k2p_phase(torch, dev) -> dict:
@@ -281,7 +419,7 @@ def reference_phase(torch, dev, defaults: bool) -> None:
               > packed_grid.rle_expected_run(grid_cfg, 1), "RLE on level 0 only")
     cfg = ngp.NGPConfig(grid=grid_cfg,
                         compute_dtype=torch.bfloat16 if defaults else torch.float32)
-    params_cpu = ngp.init_ngp(cfg, torch.Generator().manual_seed(0))
+    params_cpu = ngp.init_ngp(cfg, torch.Generator().manual_seed(0), "cpu")
     params_cpu["table"] = params_cpu["table"] * 1000.0
     g = torch.Generator().manual_seed(1)
     binary = torch.rand(16, 16, 16, generator=g) < 0.6
@@ -355,11 +493,13 @@ def profile_phase(torch, trainer, first_step: int) -> float:
     torch.cuda.synchronize()
     steps = range(first_step + 1, first_step + 1 + PROFILE_STEPS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)  # margins for the card's clock offset, as in device_ms
         t0 = time.perf_counter()
         for step in steps:
             trainer.train_iteration(step)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S)
     # device-side events, without the ranges that annotate the host's
     # calls (such as Optimizer.step), which span kernels counted already
     kernels = sorted((e for e in prof.key_averages()
@@ -611,6 +751,7 @@ def main() -> int:
         return result
 
     print(f"build: {native.build_all():.2f} s", flush=True)
+    k1p_sass = k1p_sass_phase()
     k1 = timed("K1", k1_phase, torch, dev)
     k1p = timed("K1p", k1p_phase, torch, dev)
     k2p = timed("K2p", k2p_phase, torch, dev)
@@ -623,6 +764,7 @@ def main() -> int:
         del trainer
         torch.cuda.empty_cache()
         k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
+    timed("K1p device", k1p_device_phase, torch, k1p)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     def entry(name, source, replaces, launches, k):
@@ -637,6 +779,7 @@ def main() -> int:
         dict(entry("scatter_add_bf16", "scatter_add_bf16.cu",
                    "scripts/perf/probe_pallas_scatter.py:104",
                    default_launches["scatter_add_bf16"], k1p),
+             device_ms=k1p["device_ms"], host_us=k1p["host_us"], sass_reduction=k1p_sass,
              worst_tol_ratio=k1p["worst_tol_ratio"]),
         entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
               default_launches["gather_rows"], k2p),

@@ -7,7 +7,7 @@
 //
 // What bounds it on the H100: memory traffic. Per call it reads
 // N * (4 + 4W) bytes of idx and src, does N * W f32 read-modify-writes in
-// the table (resolved in L2 by the atomic units), and the caller zeroes
+// the table (resolved in L2 by the atomic units), and zeroes
 // table_rows * 4W bytes. The encoder tables of levels 1-3 (2^19 rows of
 // 64 floats, 128 MB each) do not fit in the 50 MB L2, so scattered atomics
 // into them miss L2 and go to HBM in 32-byte sectors.
@@ -28,6 +28,10 @@
 // `lax.cond` between its run sums and the direct scatter, with no host
 // read and no copy of either set. The grid is sized for the first set and
 // strides over the second when that is longer.
+//
+// The C entry shares K1p's signature (scatter_add_bf16.cu), whose optional
+// device row count K1 does not take: it must be null. The table is zeroed
+// here, on the same stream, before the launch.
 //
 // Later work (not here): sort by slot or aggregate equal slots within a
 // warp (marched samples are ray-coherent, so coarse levels repeat slots),
@@ -70,15 +74,19 @@ __global__ void scatter_add_rows_f32x4(const int32_t* __restrict__ idx,
 extern "C" {
 
 // idx: [n_rows] int32; src: [n_rows, width] f32 (width % 4 == 0, 16-byte
-// aligned); alt_idx, alt_src, alt_rows: the alternative rows, alike, and
-// take_alt: a device byte that picks them when nonzero (all three may be
-// null and 0 when there is no alternative); out: [table_rows, width] f32,
-// zeroed by the caller. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// aligned); row_count: null (cudaErrorInvalidValue otherwise); alt_idx,
+// alt_src, alt_rows: the alternative rows, alike, and take_alt: a device
+// byte that picks them when nonzero (all three may be null and 0 when
+// there is no alternative); out: [table_rows, width] f32, zeroed here.
+// Launches on `stream` and returns the first CUDA error (0 on success).
 int scatter_add_f32(const void* idx, const void* src, long long n_rows,
-                    const void* alt_idx, const void* alt_src,
+                    const void* row_count, const void* alt_idx, const void* alt_src,
                     long long alt_rows, const void* take_alt, void* out,
                     int width, long long table_rows, void* stream) {
+  if (row_count != nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaMemsetAsync(
+      out, 0, (size_t)table_rows * (size_t)width * sizeof(float), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   const int groups = width / 4;
   if (take_alt == nullptr) alt_rows = 0;
   const long long rows = n_rows > 0 ? n_rows : alt_rows;

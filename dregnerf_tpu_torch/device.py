@@ -1,8 +1,10 @@
 """Device policy of the port.
 
-Entry points (`NGPTrainer`, `render_rays`, the CLI) take a ``device``
-argument. With none given they run on ``cuda``, and without CUDA they
-raise: the port never continues on the CPU unless the caller asks for it
+Entry points (`NGPTrainer`, `render_rays`, the CLI) and the public
+constructors (`init_ngp`, `params_from_jax`, `init_packed_grid`,
+`init_grid`, `occupancy_from_numpy`) take a ``device`` argument. With
+none given they run on ``cuda``, and without CUDA they raise: the port
+never continues on the CPU unless the caller asks for it
 (``device="cpu"``, as the tests do).
 """
 from __future__ import annotations

@@ -24,6 +24,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from dregnerf_tpu_torch.device import resolve_device
 from dregnerf_tpu_torch.ops.activation import density_activation
 from dregnerf_tpu_torch.ops.contraction import contract_aabb, contract_unisphere
 from dregnerf_tpu_torch.ops.packed_grid import (
@@ -64,7 +65,9 @@ def _dense_init(shape, generator, device) -> torch.Tensor:
 
 
 def init_ngp(config: NGPConfig = NGPConfig(), generator: torch.Generator | None = None,
-             device: torch.device | str = "cpu") -> Params:
+             device: torch.device | str | None = None) -> Params:
+    """Random weights on `device` (cuda unless given; raises without CUDA)."""
+    device = resolve_device(device)
     h = config.hidden_dim
     return {
         "table": init_packed_grid(config.grid, generator, device),
@@ -85,8 +88,11 @@ def parameters(params: Params) -> list[torch.Tensor]:
     return [params["table"], *params["density_mlp"], *params["color_mlp"]]
 
 
-def params_from_jax(params_np: Params, device: torch.device | str = "cpu") -> Params:
-    """JAX parameter pytree (numpy leaves) -> the port's parameter dict."""
+def params_from_jax(params_np: Params, device: torch.device | str | None = None) -> Params:
+    """JAX parameter pytree (numpy leaves) -> the port's parameter dict on
+    `device` (cuda unless given; raises without CUDA)."""
+    device = resolve_device(device)
+
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 

@@ -25,10 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # argtypes/restype of each library's C entry points; each takes the stream
-# last and returns its cudaGetLastError()
+# last and returns its first CUDA error
 _PTR, _ROWS = ctypes.c_void_p, ctypes.c_longlong
-# (idx, src, n_rows, alt_idx, alt_src, alt_rows, take_alt, out, width, table_rows)
-_SCATTER = ([_PTR, _PTR, _ROWS, _PTR, _PTR, _ROWS, _PTR, _PTR, ctypes.c_int, _ROWS, _PTR],
+# (idx, src, n_rows, row_count, alt_idx, alt_src, alt_rows, take_alt, out, width, table_rows)
+_SCATTER = ([_PTR, _PTR, _ROWS, _PTR, _PTR, _PTR, _ROWS, _PTR, _PTR, ctypes.c_int, _ROWS, _PTR],
             ctypes.c_int)
 # (table, idx, out, n_rows, width, table_rows)
 _GATHER = ([_PTR, _PTR, _PTR, _ROWS, ctypes.c_int, _ROWS, _PTR], ctypes.c_int)
@@ -39,6 +39,7 @@ _SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def find_nvcc() -> str:
@@ -111,6 +112,14 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _entry(name: str, entry: str) -> ctypes._CFuncPtr:
+    """C entry point `entry` of library `name`, resolved once."""
+    fn = _entries.get((name, entry))
+    if fn is None:
+        fn = _entries[(name, entry)] = getattr(load_library(name), entry)
+    return fn
+
+
 def launch(name: str, entry: str, device: torch.device, *args, aligned=()) -> None:
     """Call C entry point `entry` of library `name` on the current stream of
     `device`. Each of `args` is a tensor (passed as its data pointer), None
@@ -121,9 +130,17 @@ def launch(name: str, entry: str, device: torch.device, *args, aligned=()) -> No
         if tensor.data_ptr() % nbytes:
             raise ValueError(f"{entry}: a {tuple(tensor.shape)} {tensor.dtype} tensor is not "
                              f"aligned to {nbytes} bytes")
-    fn = getattr(load_library(name), entry)
+    fn = _entry(name, entry)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # which takes longer on the host than the launch itself
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*ptrs, stream)
+    else:  # the launch goes to the current device's context
+        with torch.cuda.device(index):
+            err = fn(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")

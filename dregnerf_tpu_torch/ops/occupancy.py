@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from dregnerf_tpu_torch.device import resolve_device
+
 
 class OccupancyGrid(NamedTuple):
     occs: torch.Tensor  # [R^3] f32 EMA density
@@ -31,15 +33,21 @@ class OccupancyGrid(NamedTuple):
         return self.resolution**3
 
 
-def init_grid(resolution: int = 128, device: torch.device | str = "cpu") -> OccupancyGrid:
+def init_grid(resolution: int = 128,
+              device: torch.device | str | None = None) -> OccupancyGrid:
+    """An empty grid on `device` (cuda unless given; raises without CUDA)."""
+    device = resolve_device(device)
     return OccupancyGrid(
         occs=torch.zeros(resolution**3, dtype=torch.float32, device=device),
         binary=torch.zeros((resolution,) * 3, dtype=torch.bool, device=device),
     )
 
 
-def occupancy_from_numpy(occs, binary, device: torch.device | str = "cpu") -> OccupancyGrid:
-    """An OccupancyGrid from numpy arrays (a JAX grid's `occs`, `binary`)."""
+def occupancy_from_numpy(occs, binary,
+                         device: torch.device | str | None = None) -> OccupancyGrid:
+    """An OccupancyGrid from numpy arrays (a JAX grid's `occs`, `binary`) on
+    `device` (cuda unless given; raises without CUDA)."""
+    device = resolve_device(device)
     return OccupancyGrid(
         occs=torch.as_tensor(np.array(occs, dtype=np.float32).reshape(-1), device=device),
         binary=torch.as_tensor(np.array(binary, dtype=bool), device=device),

@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from dregnerf_tpu_torch.device import resolve_device
 from dregnerf_tpu_torch.ops.gather_rows import gather_rows
 from dregnerf_tpu_torch.ops.rle import rle_scatter_add_safe
 from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
@@ -81,10 +82,11 @@ class PackedGridConfig:
 
 
 def init_packed_grid(config: PackedGridConfig, generator: torch.Generator | None = None,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
-    """Vertex table V: [total_rows, F], uniform(-1e-4, 1e-4)."""
+                     device: torch.device | str | None = None) -> torch.Tensor:
+    """Vertex table V: [total_rows, F], uniform(-1e-4, 1e-4), on `device`
+    (cuda unless given; raises without CUDA)."""
     u = torch.rand(config.total_rows, config.n_features, generator=generator,
-                   device=device, dtype=torch.float32)
+                   device=resolve_device(device), dtype=torch.float32)
     return u * 2e-4 - 1e-4
 
 

@@ -77,11 +77,15 @@ def run_length_segment_sum(idx: torch.Tensor, vals: torch.Tensor, max_runs: int)
     return run_idx.to(torch.int32), run_sum, n_runs
 
 
-def _scatter(accum: str):
+def _scatter_runs(accum: str, runs, n_runs: torch.Tensor, table_rows: int,
+                  alt=None) -> torch.Tensor:
+    """Scatter the run sums `runs` (run_idx, run_sum f32): K1 for "f32",
+    which walks every row of the buffer and skips the pad rows; K1p for
+    "bf16", which reads n_runs on the device and stops at the real runs."""
     if accum == "f32":
-        return scatter_add
+        return scatter_add(*runs, table_rows, alt=alt)
     if accum == "bf16":
-        return scatter_add_bf16
+        return scatter_add_bf16(*runs, table_rows, alt=alt, count=n_runs)
     raise ValueError(f"unknown accumulator {accum!r}")
 
 
@@ -91,8 +95,9 @@ def rle_scatter_add(idx: torch.Tensor, vals: torch.Tensor, max_runs: int,
     equal to the direct scatter (up to the summation order) when max_runs
     bounds the run count. `accum` "f32" gives an f32 table (K1), "bf16" a
     bf16 table (K1p)."""
-    run_idx, run_sum, _ = run_length_segment_sum(idx, vals, max_runs)
-    return _scatter(accum)(run_idx, run_sum.to(torch.float32).contiguous(), table_rows)
+    run_idx, run_sum, n_runs = run_length_segment_sum(idx, vals, max_runs)
+    return _scatter_runs(accum, (run_idx, run_sum.to(torch.float32).contiguous()), n_runs,
+                         table_rows)
 
 
 def rle_scatter_add_safe(idx: torch.Tensor, vals: torch.Tensor, max_runs: int,
@@ -105,7 +110,7 @@ def rle_scatter_add_safe(idx: torch.Tensor, vals: torch.Tensor, max_runs: int,
     run_idx, run_sum, n_runs = run_length_segment_sum(idx, vals, max_runs)
     runs = (run_idx, run_sum.to(torch.float32).contiguous())
     if max_runs >= idx.shape[0]:  # n_runs <= n: the runs always fit
-        return _scatter(accum)(*runs, table_rows)
+        return _scatter_runs(accum, runs, n_runs, table_rows)
     direct = (n_runs > max_runs, idx.to(torch.int32).contiguous(),
               vals.to(torch.float32).contiguous())
-    return _scatter(accum)(*runs, table_rows, alt=direct)
+    return _scatter_runs(accum, runs, n_runs, table_rows, alt=direct)

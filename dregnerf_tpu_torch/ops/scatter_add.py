@@ -14,8 +14,9 @@ scripts/perf/probe_pallas_scatter.py::pallas_scatter_add, whose meaning
 is JAX's `zeros(bf16).at[idx].add(src.astype(bf16))`: the backward of
 grad_accum "bf16" and "sorted_bf16", and the scatter of the run sums of a
 run-length-compressed level under "bf16". The kernel is
-csrc/scatter_add_bf16.cu: one thread per (row, pair of features), one
-`atomicAdd` on `__nv_bfloat162`.
+csrc/scatter_add_bf16.cu: one thread per (row, 8 features), one 16-byte
+vector reduction of four bf16 pairs, a grid sized by the card, and an
+optional row count read on the device (`count`).
 
 Both are bounded by memory traffic: N * (4 + 4W) bytes of idx and src
 read, the table written (4W or 2W bytes a row); the 2^19-row tables of
@@ -87,7 +88,7 @@ def scatter_add_bf16_plain(idx: torch.Tensor, src: torch.Tensor,
     return acc
 
 
-def _check(idx: torch.Tensor, src: torch.Tensor, table_rows: int, multiple: int) -> None:
+def _check_rows(idx: torch.Tensor, src: torch.Tensor, multiple: int) -> None:
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError(f"idx must be 1-D int32, got {idx.dtype} {tuple(idx.shape)}")
     if src.dtype != torch.float32 or src.dim() != 2:
@@ -98,53 +99,63 @@ def _check(idx: torch.Tensor, src: torch.Tensor, table_rows: int, multiple: int)
         raise ValueError(f"row width must be a multiple of {multiple}, got {src.shape[1]}")
     if not (idx.is_contiguous() and src.is_contiguous()):
         raise ValueError("idx and src must be contiguous")
-    if idx.device != src.device:
-        raise ValueError(f"idx on {idx.device}, src on {src.device}")
+
+
+def _check(idx, src, table_rows: int, multiple: int, alt, count) -> None:
+    """Every input of a wrapper, each checked once."""
+    _check_rows(idx, src, multiple)
     if table_rows <= 0:
         raise ValueError(f"table_rows must be positive, got {table_rows}")
+    dev = src.device
+    if idx.device != dev:
+        raise ValueError(f"idx on {idx.device}, src on {dev}")
+    if alt is not None:
+        take_alt, alt_idx, alt_src = alt
+        _check_rows(alt_idx, alt_src, multiple)
+        if take_alt.dtype != torch.bool or take_alt.numel() != 1:
+            raise TypeError(f"the flag must be one bool, got {take_alt.dtype} "
+                            f"{tuple(take_alt.shape)}")
+        if not take_alt.device == alt_idx.device == alt_src.device == dev:
+            raise ValueError("the alternative rows and their flag must lie on src's device")
+        if alt_src.shape[1] != src.shape[1]:
+            raise ValueError(f"alternative rows of width {alt_src.shape[1]}, not {src.shape[1]}")
+    if count is not None:
+        if count.dtype != torch.int64 or count.numel() != 1:
+            raise TypeError(f"the row count must be one int64, got {count.dtype} "
+                            f"{tuple(count.shape)}")
+        if count.device != dev:
+            raise ValueError(f"the row count on {count.device}, src on {dev}")
 
 
-def _chosen(idx, src, alt):
-    """The rows a wrapper scatters: (idx, src), or alt's rows when its flag
-    is set. On the CPU the flag is read on the host."""
+def _chosen(idx, src, alt, count):
+    """The rows a wrapper scatters: alt's rows when its flag is set, else
+    the first `count` rows of (idx, src) (all without a count). On the CPU
+    the flag and the count are read on the host."""
     if alt is not None and bool(alt[0]):
         return alt[1], alt[2]
+    if count is not None:
+        n = min(max(int(count), 0), idx.shape[0])
+        return idx[:n], src[:n]
     return idx, src
 
 
-def _check_alt(alt, src: torch.Tensor, table_rows: int, multiple: int) -> None:
-    take_alt, alt_idx, alt_src = alt
-    _check(alt_idx, alt_src, table_rows, multiple)
-    if take_alt.dtype != torch.bool or take_alt.numel() != 1:
-        raise TypeError(f"the flag must be one bool, got {take_alt.dtype} "
-                        f"{tuple(take_alt.shape)}")
-    if take_alt.device != src.device or alt_src.device != src.device:
-        raise ValueError("the alternative rows and their flag must lie on src's device")
-    if alt_src.shape[1] != src.shape[1]:
-        raise ValueError(f"alternative rows of width {alt_src.shape[1]}, not {src.shape[1]}")
-
-
 def _scatter(name: str, entry: str, multiple: int, dtype: torch.dtype, idx, src,
-             table_rows: int, alt) -> torch.Tensor | None:
+             table_rows: int, alt, count) -> torch.Tensor | None:
     """Check the inputs; on the CPU return None (the caller takes its plain
-    version); on the card launch the kernel into a fresh zero table."""
-    _check(idx, src, table_rows, multiple)
-    if alt is not None:
-        _check_alt(alt, src, table_rows, multiple)
+    version); on the card launch the kernel, which zeroes a fresh table and
+    scatters into it."""
+    _check(idx, src, table_rows, multiple, alt, count)
     if src.device.type == "cpu":
         return None
     if src.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {src.device}")
-    out = torch.zeros(table_rows, src.shape[1], dtype=dtype, device=src.device)
     take_alt, alt_idx, alt_src = alt if alt is not None else (None, None, None)
     if idx.shape[0] == 0 and (alt is None or alt_idx.shape[0] == 0):
-        return out
-    # a thread reads `multiple` floats of a src row and adds them to as
-    # many elements of the table
-    aligned = [(src, 4 * multiple), (out, out.element_size() * multiple)]
-    if alt is not None:
-        aligned.append((alt_src, 4 * multiple))
-    launch(name, entry, src.device, idx, src, idx.shape[0], alt_idx, alt_src,
+        return torch.zeros(table_rows, src.shape[1], dtype=dtype, device=src.device)
+    out = torch.empty(table_rows, src.shape[1], dtype=dtype, device=src.device)
+    # the kernels read src and add into the table in 16-byte vectors
+    aligned = [(src, 16), (out, 16)] + ([(alt_src, 16)] if alt is not None else [])
+    launch(name, entry, src.device, idx, src, idx.shape[0], count, alt_idx, alt_src,
            0 if alt is None else alt_idx.shape[0], take_alt, out, src.shape[1], table_rows,
            aligned=aligned)
     return out
@@ -158,25 +169,28 @@ def scatter_add(idx: torch.Tensor, src: torch.Tensor, table_rows: int,
     `alt`, (take_alt [] or [1] bool, alt_idx [M] int32, alt_src [M, W] f32)
     on src's device: scatter those rows instead when take_alt is true, a
     choice the kernel makes on the device (no host read)."""
-    out = _scatter("scatter_add", "scatter_add_f32", 4, torch.float32, idx, src, table_rows, alt)
+    out = _scatter("scatter_add", "scatter_add_f32", 4, torch.float32, idx, src, table_rows,
+                   alt, None)
     if out is None:
-        return scatter_add_plain(*_chosen(idx, src, alt), table_rows)
+        return scatter_add_plain(*_chosen(idx, src, alt, None), table_rows)
     scatter_add.launches += 1
     return out
 
 
 def scatter_add_bf16(idx: torch.Tensor, src: torch.Tensor, table_rows: int,
-                     alt=None) -> torch.Tensor:
-    """K1p: add `src` rows [N, W] f32 (W even), each rounded to bf16, into
-    a new [table_rows, W] bf16 table at rows `idx` [N] int32, with bf16
-    adds; `alt` as in `scatter_add`. Returns the bf16 table; callers cast
-    it (the kernel's atomics add a slot's rows in a varying order, so on
-    the card the result agrees with the serial order within the rounding
-    of each add)."""
-    out = _scatter("scatter_add_bf16", "scatter_add_bf16", 2, torch.bfloat16, idx, src,
-                   table_rows, alt)
+                     alt=None, count: torch.Tensor | None = None) -> torch.Tensor:
+    """K1p: add `src` rows [N, W] f32 (W % 8 == 0), each rounded to bf16,
+    into a new [table_rows, W] bf16 table at rows `idx` [N] int32, with
+    bf16 adds; `alt` as in `scatter_add`. `count`, one int64 on src's
+    device: scatter only the first `count` rows (clamped to [0, N]), a
+    bound the kernel reads on the device; it applies to (idx, src), not to
+    alt's rows. Returns the bf16 table; callers cast it (the kernel adds a
+    slot's rows in a varying order, so on the card the result agrees with
+    the serial order within the rounding of each add)."""
+    out = _scatter("scatter_add_bf16", "scatter_add_bf16", 8, torch.bfloat16, idx, src,
+                   table_rows, alt, count)
     if out is None:
-        return scatter_add_bf16_plain(*_chosen(idx, src, alt), table_rows)
+        return scatter_add_bf16_plain(*_chosen(idx, src, alt, count), table_rows)
     scatter_add_bf16.launches += 1
     return out
 

@@ -42,7 +42,7 @@ def scene():
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     jitter = np.asarray(jax.random.uniform(jax.random.PRNGKey(7), (RAYS, 1)))
     jgrid = jocc.init_grid(RES)._replace(binary=jnp.asarray(binary))
-    tgrid = tocc.occupancy_from_numpy(np.zeros(RES**3, np.float32), binary)
+    tgrid = tocc.occupancy_from_numpy(np.zeros(RES**3, np.float32), binary, "cpu")
     return jgrid, tgrid, o, d, jitter
 
 
@@ -102,7 +102,7 @@ def test_unbounded_contraction_matches_jax(scene, marcher, occupied):
     _, _, o, d, jitter = scene
     binary = _shell_grid(10.0) if occupied == "shell" else np.zeros((RES,) * 3, bool)
     jgrid = jocc.init_grid(RES)._replace(binary=jnp.asarray(binary))
-    tgrid = tocc.occupancy_from_numpy(np.zeros(RES**3, np.float32), binary)
+    tgrid = tocc.occupancy_from_numpy(np.zeros(RES**3, np.float32), binary, "cpu")
     step = 4.0 * STEP
     if marcher == "rows":
         want = jmarch.march_rays_rows(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
@@ -212,7 +212,7 @@ def test_render_rays_matches_jax(scene, compaction):
     tcfg = tngp.NGPConfig(grid=TGrid(**grid_kw), compute_dtype=torch.float32)
     jparams = jngp.init_ngp(jax.random.PRNGKey(3), jcfg)
     jparams["table"] = jparams["table"] * 1000.0
-    tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     rcfg_kw = dict(render_step_size=STEP, buffer_size=1 << 12, max_steps=STEPS,
                    march_compaction=compaction, k_cap=64)
     bg = np.array([1.0, 1.0, 1.0], np.float32)
@@ -239,7 +239,7 @@ def test_render_image_chunked_matches_jax(scene):
     tcfg = tngp.NGPConfig(grid=TGrid(**grid_kw), compute_dtype=torch.float32)
     jparams = jngp.init_ngp(jax.random.PRNGKey(4), jcfg)
     jparams["table"] = jparams["table"] * 1000.0
-    tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     rcfg = dict(render_step_size=STEP, buffer_size=1 << 12, max_steps=STEPS, chunk_size=64)
     bg = np.ones(3, np.float32)
     want = jrender.render_image_chunked(jparams, jcfg, jgrid, jnp.asarray(o), jnp.asarray(d),

@@ -23,7 +23,7 @@ def _models(bf16: bool, unbounded: bool = False):
     jparams = jngp.init_ngp(jax.random.PRNGKey(0), jcfg)
     jparams["table"] = jparams["table"] * 1000.0  # O(0.1) features
     params_np = jax.tree_util.tree_map(np.asarray, jparams)
-    return jcfg, tcfg, jparams, tngp.params_from_jax(params_np)
+    return jcfg, tcfg, jparams, tngp.params_from_jax(params_np, "cpu")
 
 
 def _points(n=400, seed=0):
@@ -66,6 +66,6 @@ def test_params_round_trip_through_numpy():
     assert len(flat_j) == len(flat_t) == 6
     for a, b in zip(flat_j, flat_t):
         np.testing.assert_array_equal(a, b)
-    fresh = tngp.init_ngp(tcfg, torch.Generator().manual_seed(0))
+    fresh = tngp.init_ngp(tcfg, torch.Generator().manual_seed(0), "cpu")
     assert [a.shape for a in jax.tree_util.tree_leaves(tngp.params_to_numpy(fresh))] == [
         a.shape for a in flat_j]

@@ -33,7 +33,7 @@ def _warm(key):
     want = jocc.update_grid(grid, key, _field_j, warmup=True)
     k_j1 = jax.random.split(key, 4)[2]
     noise = jax.random.uniform(k_j1, (N_CELLS, 3), minval=-0.5, maxval=0.5)
-    got = tocc.update_grid(tocc.init_grid(RES), _field_t, warmup=True,
+    got = tocc.update_grid(tocc.init_grid(RES, "cpu"), _field_t, warmup=True,
                            noise=torch.as_tensor(np.array(noise)))
     return want, got
 
@@ -58,7 +58,7 @@ def test_steady_update_matches_jax(empty):
         occ_rank=jax.random.randint(k_occ, (n,), 0, max(total, 1)),
         noise=jax.random.uniform(k_j1, (2 * n, 3), minval=-0.5, maxval=0.5))
     got = tocc.update_grid(
-        tocc.occupancy_from_numpy(np.asarray(start.occs), np.asarray(start.binary)),
+        tocc.occupancy_from_numpy(np.asarray(start.occs), np.asarray(start.binary), "cpu"),
         _field_t, warmup=False, n_samples=n,
         **{k: torch.as_tensor(np.array(v)) for k, v in draws.items()})
     _compare(got, want)
@@ -67,7 +67,7 @@ def test_steady_update_matches_jax(empty):
 def test_generator_draws_and_query_binary():
     """Draws from a torch.Generator stay in range; query_binary == JAX's."""
     start, _ = _warm(jax.random.PRNGKey(0))
-    grid = tocc.occupancy_from_numpy(np.asarray(start.occs), np.asarray(start.binary))
+    grid = tocc.occupancy_from_numpy(np.asarray(start.occs), np.asarray(start.binary), "cpu")
     g = torch.Generator().manual_seed(0)
     out = tocc.update_grid(grid, _field_t, warmup=False, n_samples=500, generator=g)
     assert out.occs.shape == (N_CELLS,) and out.binary.shape == (RES,) * 3

@@ -58,7 +58,8 @@ def _shrink(trainer, seed=0):
     """Swap the full-size default model for a tiny one (CPU speed)."""
     trainer.model_config = tngp.NGPConfig(grid=TGrid(**GRID, grad_accum="pallas"),
                                           compute_dtype=torch.float32)
-    trainer.params = tngp.init_ngp(trainer.model_config, torch.Generator().manual_seed(seed))
+    trainer.params = tngp.init_ngp(trainer.model_config, torch.Generator().manual_seed(seed),
+                                   "cpu")
     for p in tngp.parameters(trainer.params):
         p.requires_grad_(True)
     trainer.setup_optimizer()
@@ -122,13 +123,13 @@ def _one_step(grid_kw, bf16=False, monkeypatch=None):
             return recorded
 
         monkeypatch.setattr(TPG, "level_backward", spy)
-    tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     for p in tngp.parameters(tparams):
         p.requires_grad_(True)
     draws = TT.StepDraws(*(torch.as_tensor(np.array(a)) for a in (img_id, x, y, bg, jitter)))
     tloss, metrics = TT.step_loss(
         tparams, tcfg, trender.RenderConfig(**rkw),
-        tocc.occupancy_from_numpy(np.zeros(16**3), binary), torch.as_tensor(aabb),
+        tocc.occupancy_from_numpy(np.zeros(16**3), binary, "cpu"), torch.as_tensor(aabb),
         torch.as_tensor(images), torch.as_tensor(c2ws), torch.as_tensor(K), draws,
         synthetic=True, opengl=True)
     tloss.backward()
@@ -219,7 +220,7 @@ def test_adam_updates_match_optax():
     init["table"] = init["table"][0]
     max_steps = 8
     stub = types.SimpleNamespace(config=types.SimpleNamespace(max_iterations=max_steps),
-                                 params=tngp.params_from_jax(init))
+                                 params=tngp.params_from_jax(init, "cpu"))
     for p in tngp.parameters(stub.params):
         p.requires_grad_(True)
     TT.NGPTrainer.setup_optimizer(stub)
@@ -235,7 +236,8 @@ def test_adam_updates_match_optax():
                          [g["table"], *g["density_mlp"], *g["color_mlp"]]):
             p.grad = torch.as_tensor(gp)
         TT.NGPTrainer.apply_gradients(stub, step)
-    want = tngp.params_to_numpy(tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams)))
+    want = tngp.params_to_numpy(
+        tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu"))
     got = tngp.params_to_numpy(stub.params)
     for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
@@ -320,13 +322,34 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     cfg = tconfig_parser(_tiny_argv(str(tmp_path)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.NGPTrainer(cfg, scene)
-    grid = tocc.init_grid(16)
-    params = tngp.init_ngp(tngp.NGPConfig(grid=TGrid(**GRID)))
+    grid = tocc.init_grid(16, "cpu")
+    params = tngp.init_ngp(tngp.NGPConfig(grid=TGrid(**GRID)), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trender.render_rays(params, tngp.NGPConfig(grid=TGrid(**GRID)), grid,
                             torch.zeros(4, 3), torch.ones(4, 3) / math.sqrt(3),
                             torch.tensor(AABB), trender.RenderConfig())
     assert TT.NGPTrainer(cfg, scene, device="cpu").device.type == "cpu"
+
+
+_CONSTRUCTORS = {
+    "init_ngp": lambda: tngp.init_ngp(tngp.NGPConfig(grid=TGrid(**GRID))),
+    "params_from_jax": lambda: tngp.params_from_jax(
+        {"table": np.zeros((4, 2)), "density_mlp": [np.zeros((2, 2))] * 2,
+         "color_mlp": [np.zeros((2, 2))] * 3}),
+    "init_packed_grid": lambda: TPG.init_packed_grid(TGrid(**GRID)),
+    "init_grid": lambda: tocc.init_grid(16),
+    "occupancy_from_numpy": lambda: tocc.occupancy_from_numpy(np.zeros(8),
+                                                              np.zeros((2, 2, 2), bool)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CONSTRUCTORS))
+def test_constructors_refuse_the_cpu_unless_asked(monkeypatch, name):
+    """The public constructors take the device policy of the entry points:
+    cuda unless a device is given, and without CUDA they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _CONSTRUCTORS[name]()
 
 
 def test_fixture_scene_matches_the_jax_loader(tmp_path):
