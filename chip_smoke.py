@@ -34,10 +34,19 @@ Phases, in order; any failure exits non-zero:
      (voxel extraction over every occupied voxel from the training cameras,
      and the artifacts written), and a second surface pass over the same
      points for its rate and the scores;
-  7. training under grad_accum "pallas" without the run-length backward
+  7. stage 3 on the grid that phase 6 extracted on the card: a two-block
+     scene (the block, and a copy whose occupied xyz a known SE(3) moves),
+     loaded through NeRFRegDataset; seeded flax-layout weights saved as a
+     JAX-layout checkpoint and read by the eval twin (RegEvaluator); the
+     full-width NeRFRegTr forward in bf16 and in f32 (TF32 off) with a
+     rigid-pose check, ms a pair, peak memory, FLOPs against the peak rate
+     and the top kernels of a profiled forward; RegEvaluator.evaluate();
+     the card against the CPU at R = 32 (a crop of the grid), in f32 and
+     in bf16, with stated tolerances;
+  8. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
-  8. a JSON line of every kernel with its launches on its path, time, plain
+  9. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -56,6 +65,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense, tensor cores
 K1_TOL = 1e-5  # relative to max |out|: atomics sum in a varying order
 TRAIN_STEPS = 64
 STEADY = range(49, TRAIN_STEPS)  # after the last occupancy update in the run, at step 48
@@ -66,6 +76,20 @@ PROFILE_PAD_S = 0.1  # host seconds around a profiled window's launches (device_
 PORT_KERNELS = ("scatter_add_rows_f32x4", "scatter_add_rows_bf16x8", "gather_rows_f32x4")
 PALLAS_STEPS = 64
 EXTRACT_STEPS = 1024  # the default-trained block is extracted at this step
+REG_WARMUP, REG_TIMED = 2, 10  # registration forwards before and under the clock
+REG_ROTATION = (30.0, (1.0, 2.0, 0.5))  # block 1 = block 0 moved: degrees about an axis,
+REG_TRANSLATION = (0.1, 0.0, 0.0)  # then this translation
+PARITY_R = 32  # the card-against-CPU crop
+# card against CPU at PARITY_R, full width (stated before the first chip run;
+# group counts, the level and the validity masks are exact in both dtypes):
+# f32 with TF32 off, conditioned features within 1e-3 of their max |value|;
+# bf16 on both, features within 0.25 (LayerNorm outputs of order 1, bf16
+# steps of 2^-8 through 6 layers) and the pose to 10 degrees and 0.05
+PARITY_TOL = {
+    "float32": {"features_rel": 1e-3, "keypoints": 1e-5, "pose_entries": 1e-3},
+    "bfloat16": {"features": 0.25, "keypoints": 1e-5, "rotation_deg": 10.0,
+                 "translation": 0.05},
+}
 N_ROWS, WIDTH = 1 << 18, 64  # rows of one encoder level's gather or scatter a step
 # (table rows, run length of equal slots) of the four encoder levels of a
 # step: a ray's steps per cell at each level (1024 steps over a 2-unit box)
@@ -481,45 +505,59 @@ def reference_phase(torch, dev, defaults: bool) -> None:
           f"launches K1/K1p/K2p {ran}, max grad err {worst:.2e} of max |g|{extra}", flush=True)
 
 
+def profiled(torch, fn, calls: int, label: str, unit: str):
+    """fn(), which makes `calls` calls of what is measured, under
+    torch.profiler; prints its wall and device busy ms a call, the device's
+    idle share, the device operations a call and the PROFILE_TOP kernels.
+    Returns (device busy ms a call, the device events by device time, the
+    host events by self time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)  # margins for the card's clock offset, as in device_ms
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S)
+    events = prof.key_averages()
+    # device-side events, without the ranges that annotate the host's
+    # calls (such as Optimizer.step), which span kernels counted already
+    kernels = sorted((e for e in events
+                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                     key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels) / calls
+    print(f"{label}: {wall_us / calls / 1e3:.3f} ms/{unit} wall (profiled), device busy "
+          f"{busy_us / calls / 1e3:.3f} ms/{unit}, idle share of the profiled {unit}s "
+          f"{1 - busy_us / wall_us:.4f}, {launches:.0f} device operations a {unit} of "
+          f"{len(kernels)} kinds", flush=True)
+    for e in kernels[:PROFILE_TOP]:
+        print(f"  {e.self_device_time_total / calls / 1e3:8.3f} ms/{unit} "
+              f"{e.self_device_time_total / max(busy_us, 1e-9):6.1%} x{e.count // calls:<4d} "
+              f"{e.key[:100]}", flush=True)
+    return busy_us / calls / 1e3, kernels, host
+
+
 def profile_phase(torch, trainer, first_step: int) -> float:
     """Where a training step's device time goes: PROFILE_STEPS steps after
     the occupancy update of step `first_step`, under torch.profiler; prints
     the device's busy share of the window and the kernels that take most
     of it, and returns the device's busy ms a step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     trainer.train_iteration(first_step)
-    torch.cuda.synchronize()
     steps = range(first_step + 1, first_step + 1 + PROFILE_STEPS)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)  # margins for the card's clock offset, as in device_ms
-        t0 = time.perf_counter()
-        for step in steps:
-            trainer.train_iteration(step)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        time.sleep(PROFILE_PAD_S)
-    # device-side events, without the ranges that annotate the host's
-    # calls (such as Optimizer.step), which span kernels counted already
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-                     key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels) / len(steps)
-    print(f"profile: steps {steps.start}-{steps.stop - 1}, {wall_us / len(steps) / 1e3:.3f} "
-          f"ms/step wall (profiled), device busy {busy_us / len(steps) / 1e3:.3f} ms/step, "
-          f"idle share of the profiled steps {1 - busy_us / wall_us:.4f}, {launches:.0f} "
-          f"device operations a step of {len(kernels)} kinds", flush=True)
-    for e in kernels[:PROFILE_TOP]:
-        print(f"  {e.self_device_time_total / len(steps) / 1e3:8.3f} ms/step "
-              f"{e.self_device_time_total / max(busy_us, 1e-9):6.1%} x{e.count // len(steps):<4d} "
-              f"{e.key[:100]}", flush=True)
+    busy_ms, kernels, _ = profiled(
+        torch, lambda: [trainer.train_iteration(step) for step in steps], len(steps),
+        f"profile: steps {steps.start}-{steps.stop - 1}", "step")
     for e in kernels:  # the port's own kernels, wherever they rank
         if any(name in e.key for name in PORT_KERNELS):
             print(f"  port kernel {e.key[:40]}: {e.self_device_time_total / len(steps) / 1e3:.4f} "
                   f"ms/step device, x{e.count // len(steps)} a step", flush=True)
-    return busy_us / len(steps) / 1e3
+    return busy_ms
 
 
 def _scenes():
@@ -686,6 +724,250 @@ def extract_phase(torch, trainer, cfg) -> None:
     check(bool(torch.isfinite(grid).all()), "voxel_grid.pt not finite")
 
 
+def _rigid(np, degrees: float, axis, translation):
+    """4x4 rotation of `degrees` about `axis`, then `translation`."""
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    a = np.deg2rad(degrees)
+    out = np.eye(4)
+    out[:3, :3] = np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+    out[:3, 3] = translation
+    return out
+
+
+def build_reg_scene(torch, block_dir: str, root: str, subject: str):
+    """<root>/nerf_models/<subject>/block_{0,1}: block 0 is the artifacts
+    of `block_dir` as stage 2 wrote them, block 1 a copy whose occupied
+    voxels' xyz (and point cloud) a known SE(3) T moves;
+    world_frame_transforms.json holds {0: I, 1: T}. Returns T."""
+    import shutil
+
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets.base import save_world_frame_transforms
+    from dregnerf_tpu_torch.io.ply import read_ply, write_ply
+
+    T = _rigid(np, REG_ROTATION[0], REG_ROTATION[1], REG_TRANSLATION)
+    scene = os.path.join(root, "nerf_models", subject)
+    blocks = [os.path.join(scene, f"block_{b}") for b in (0, 1)]
+    for b in blocks:
+        os.makedirs(os.path.join(b, "model"))
+        for name in ("voxel_mask.pt", os.path.join("model", "model.ckpt")):
+            shutil.copyfile(os.path.join(block_dir, name), os.path.join(b, name))
+    for name in ("voxel_grid.pt", "voxel_point_cloud.ply"):
+        shutil.copyfile(os.path.join(block_dir, name), os.path.join(blocks[0], name))
+    grid = torch.load(os.path.join(block_dir, "voxel_grid.pt"))
+    idx = torch.load(os.path.join(block_dir, "voxel_mask.pt"))
+    rot, trans = torch.as_tensor(T[:3, :3], dtype=torch.float32), torch.as_tensor(
+        T[:3, 3], dtype=torch.float32)
+    flat = grid.reshape(-1, 7).clone()
+    flat[idx, :3] = flat[idx, :3] @ rot.T + trans
+    torch.save(flat.reshape(grid.shape), os.path.join(blocks[1], "voxel_grid.pt"))
+    pts, cols = read_ply(os.path.join(block_dir, "voxel_point_cloud.ply"))
+    write_ply(os.path.join(blocks[1], "voxel_point_cloud.ply"), pts @ T[:3, :3].T + T[:3, 3],
+              cols)
+    save_world_frame_transforms(scene, {0: np.eye(4), 1: T})
+    return T
+
+
+def _check_rigid(torch, pose, label: str) -> float:
+    """Finite [L, 3, 4] poses whose rotations are orthonormal with det 1
+    (within 1e-4); returns the largest |R R^T - I|."""
+    pose = pose.float()
+    check(bool(torch.isfinite(pose).all()), f"{label}: non-finite pose")
+    rot = pose[..., :3]
+    orth = (rot @ rot.transpose(-1, -2) - torch.eye(3, device=pose.device)).abs().max().item()
+    det = (torch.linalg.det(rot) - 1.0).abs().max().item()
+    check(orth <= 1e-4 and det <= 1e-4, f"{label}: |R R^T - I| {orth}, |det - 1| {det}")
+    return orth
+
+
+def reg_forward_stats(torch, model, batch, label: str, peak_flops: float) -> None:
+    """Prints the forward of `model` on `batch`: ms a pair over REG_TIMED forwards
+    after REG_WARMUP (CUDA events), peak device memory above what was
+    allocated before, the FLOPs of its convolutions and matmuls
+    (torch.utils.flop_counter) and their time at `peak_flops`, and the top
+    kernels of one profiled forward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.inference_mode():
+        for _ in range(REG_WARMUP):
+            out = model(batch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REG_TIMED):
+            out = model(batch)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / REG_TIMED
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        orth = _check_rigid(torch, out["pose"], f"register [{label}]")
+        with FlopCounterMode(display=False) as counter:
+            model(batch)
+    flops = counter.get_total_flops()
+    by_module = {k: sum(v.values()) for k, v in counter.get_flop_counts().items()}
+    fpn = by_module.get("NeRFRegTr.fpn3d", 0)
+    finest = sum(by_module.get(f"NeRFRegTr.fpn3d.{m}", 0) for m in ("lateral1", "smooth1"))
+    bound = flops / peak_flops * 1e3
+    pose = out["pose"][-1].float().cpu().numpy()
+    print(f"register [{label}]: {ms:.3f} ms a pair ({REG_TIMED} forwards after {REG_WARMUP}), "
+          f"peak device memory {peak_gib:.3f} GiB above {base / 2**30:.3f} GiB; level "
+          f"{int(out['ds_level'])}, valid tokens {int(out['src_valid'].sum())} / "
+          f"{int(out['tgt_valid'].sum())}; {flops / 1e12:.4f} TFLOP in convolutions and "
+          f"matmuls (FPN {fpn / 1e12:.4f}, of which lateral1 + smooth1 {finest / 1e12:.4f}), "
+          f"bound {bound:.3f} ms at {peak_flops / 1e12:.0f} TFLOP/s = {bound / ms:.4f} of "
+          f"the measured; |R R^T - I| {orth:.2e}; last-layer pose {pose.round(5).tolist()}",
+          flush=True)
+    with torch.inference_mode():
+        _, _, host = profiled(torch, lambda: model(batch), 1, f"register [{label}] profile",
+                              "forward")
+    for e in host[:5]:  # the host operations of most self time
+        print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}",
+              flush=True)
+
+
+def reg_parity_phase(torch, models: dict, item: dict) -> None:
+    """The full-width model on the card and on the CPU, same weights, on
+    a PARITY_R^3 crop of both grids centred on the occupied voxel nearest
+    the occupied centroid (the surface shell may leave the centroid
+    itself empty). Tolerances in PARITY_TOL."""
+    import copy
+
+    import numpy as np
+
+    r = item["src_grid"].shape[0]
+    occ = np.argwhere(item["src_mask"].reshape(r, r, r))
+    centre = occ[np.argmin(((occ - occ.mean(0)) ** 2).sum(1))]
+    lo = np.clip(centre - PARITY_R // 2, 0, r - PARITY_R)
+    window = tuple(slice(a, a + PARITY_R) for a in lo)
+    data = {}
+    for side in ("src", "tgt"):
+        data[f"{side}_grid"] = np.ascontiguousarray(item[f"{side}_grid"][window])
+        data[f"{side}_mask"] = np.ascontiguousarray(
+            item[f"{side}_mask"].reshape(r, r, r)[window].reshape(-1))
+    n_occ = int(data["src_mask"].sum())
+    check(n_occ >= 100, f"parity crop holds {n_occ} occupied voxels")
+    for dtype, model in models.items():
+        cpu_model = copy.deepcopy(model).cpu()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            got = model({k: torch.as_tensor(v, device="cuda") for k, v in data.items()})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = cpu_model({k: torch.as_tensor(v) for k, v in data.items()})
+            t2 = time.perf_counter()
+        got = {k: v.cpu() for k, v in got.items()}
+        check(int(got["ds_level"]) == int(want["ds_level"]), f"parity [{dtype}]: level")
+        for key in ("src_valid", "tgt_valid"):
+            check(torch.equal(got[key], want[key]), f"parity [{dtype}]: {key}")
+        feat_err = max((got[k].float() - want[k].float()).abs().max().item()
+                       for k in ("src_feats", "tgt_feats"))
+        feat_max = max(want[k].float().abs().max().item() for k in ("src_feats", "tgt_feats"))
+        kp_err = max((got[k] - want[k]).abs().max().item() for k in ("src_kp", "tgt_kp"))
+        pose_err = (got["pose"] - want["pose"]).abs().max().item()
+        _check_rigid(torch, got["pose"], f"parity [{dtype}] card")
+        # the angle of R_card^T R_cpu from both its sine (the skew part) and
+        # cosine: arccos alone floors near 0.07 deg for f32 rotations
+        rel = got["pose"][..., :3].double().transpose(-1, -2) @ want["pose"][..., :3].double()
+        skew = rel - rel.transpose(-1, -2)
+        sin = torch.stack([skew[..., 2, 1], skew[..., 0, 2], skew[..., 1, 0]], -1).norm(dim=-1) / 2
+        cos = (rel.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
+        rot_deg = torch.rad2deg(torch.atan2(sin, cos)).max().item()
+        trans_err = (got["pose"][..., 3] - want["pose"][..., 3]).norm(dim=-1).max().item()
+        print(f"parity [{dtype}] R={PARITY_R} crop at {lo.tolist()} ({n_occ} occupied src "
+              f"voxels): level {int(got['ds_level'])} equal, valid tokens "
+              f"{int(got['src_valid'].sum())} / {int(got['tgt_valid'].sum())} equal; features "
+              f"max abs err {feat_err:.3e} (max |value| {feat_max:.3f}), keypoints "
+              f"{kp_err:.3e}, pose entries {pose_err:.3e}, rotation {rot_deg:.4f} deg, "
+              f"translation {trans_err:.3e}; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s",
+              flush=True)
+        tol = PARITY_TOL[dtype]
+        errors = {"features_rel": feat_err / feat_max, "features": feat_err,
+                  "keypoints": kp_err, "pose_entries": pose_err, "rotation_deg": rot_deg,
+                  "translation": trans_err}
+        over = {k: errors[k] for k, bound in tol.items() if errors[k] > bound}
+        check(not over, f"parity [{dtype}]: over the tolerance {tol}: {over}")
+
+
+def register_phase(torch, block_dir: str, out_dir: str) -> None:
+    """Stage 3 on the block stage 2 extracted on the card (see the module
+    docstring, phase 7)."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.eval_nerf_regtr import RegEvaluator, save_reg_checkpoint
+    from dregnerf_tpu_torch.models.regtr import random_jax_params
+    from dregnerf_tpu_torch.ops.voxel_subsample import masked_select_strided
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.reg_trainer import make_reg_model, to_device
+
+    root, subject = os.path.join(out_dir, "reg_scene"), "chip_smoke_pair"
+    T = build_reg_scene(torch, block_dir, root, subject)
+    ckpt = os.path.join(out_dir, "chip_smoke_reg", "model", "model.ckpt")
+    cfg = config_parser(["--out_dir", out_dir, "--expname", "chip_smoke_reg", "--root_dir",
+                         root, "--scene", subject, "--ckpt_path", ckpt])
+    dataset = NeRFRegDataset(root, subject_id=subject, split="test", seed=cfg.seed)
+    check(len(dataset) == 1, "the two-block scene loads")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tree = random_jax_params(make_reg_model(cfg), rng)
+    d = cfg.position_embedding_dim
+    save_reg_checkpoint(ckpt, tree, (rng.standard_normal((d, d)) * 0.1).astype(np.float32),
+                        {"step": 0})
+    t1 = time.perf_counter()
+    ev = RegEvaluator(cfg, dataset)  # default device: cuda; the checkpoint via params_from_jax
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    model = ev.model
+    check(ev.device.type == "cuda" and all(p.is_cuda for p in model.parameters())
+          and model.dtype == torch.bfloat16, "RegEvaluator: bf16 model on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"register: weights drawn and saved {t1 - t0:.3f} s ({n_params} parameters, "
+          f"{os.path.getsize(ckpt) / 2**20:.1f} MiB), RegEvaluator built {t2 - t1:.3f} s",
+          flush=True)
+
+    item = dataset[0]
+    batch = to_device(item, ev.device)
+    gt = np.asarray(item["pose"], np.float64)
+    check(np.allclose(gt, T if item["block_list"] == [0, 1] else np.linalg.inv(T), atol=1e-5),
+          "ground-truth pose of the pair")
+    for side in ("src", "tgt"):
+        mask = batch[f"{side}_mask"]
+        selected = int(masked_select_strided(mask, model.max_input_points)[1].sum())
+        print(f"register {side}: {int(mask.sum())} occupied voxels of {mask.numel()}, "
+              f"{selected} selected (cap {model.max_input_points}, strided)", flush=True)
+
+    reg_forward_stats(torch, model, batch, "bf16", BF16_FLOPS)
+    t3 = time.perf_counter()
+    metrics = ev.evaluate()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    agg = metrics["aggregate"]
+    check(agg["num_pairs"] == 1 and math.isfinite(agg["R_mean"])
+          and os.path.exists(os.path.join(ev.output_dir, "metrics_test.json")),
+          f"RegEvaluator.evaluate(): {agg}")
+    print(f"RegEvaluator.evaluate(): {t4 - t3:.3f} s wall for {agg['num_pairs']} pair "
+          f"(forward {metrics['per_scene'][subject]['time']:.4f} s), RRE {agg['R_mean']:.4f} "
+          f"deg, RTE {agg['t_mean']:.5f} (random weights: no accuracy expected); wrote "
+          f"{sorted(os.listdir(os.path.join(ev.output_dir, subject)))}", flush=True)
+
+    f32 = make_reg_model(cfg, torch.float32)
+    f32.load_state_dict(model.state_dict())
+    f32.to(ev.device).eval()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN convolutions default to TF32
+    try:
+        reg_forward_stats(torch, f32, batch, "f32, TF32 off", F32_FLOPS)
+        reg_parity_phase(torch, {"float32": f32, "bfloat16": model}, item)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def train_pallas_phase(torch, out_dir: str) -> int:
     """grad_accum "pallas" without RLE at full width: K1 on every level.
     Steps 49-63 have no occupancy update: their ms/step compares with the
@@ -761,7 +1043,10 @@ def main() -> int:
         trainer, cfg, default_launches = timed("train defaults", train_default_phase, torch,
                                                out_dir)
         timed("extract", extract_phase, torch, trainer, cfg)
+        block_dir = trainer.output_dir
         del trainer
+        torch.cuda.empty_cache()
+        timed("register", register_phase, torch, block_dir, out_dir)
         torch.cuda.empty_cache()
         k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
     timed("K1p device", k1p_device_phase, torch, k1p)

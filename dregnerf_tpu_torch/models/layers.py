@@ -1,0 +1,101 @@
+"""Layers with flax.linen's numerics, for the registration model.
+
+The JAX package's modules take a compute `dtype` (bf16 by default in
+stage 3) over f32 parameters. Flax then:
+  - casts a convolution's or dense layer's input, kernel and bias to the
+    dtype, and adds the bias after the product, in the dtype;
+  - computes a norm's statistics in f32 as E[x^2] - E[x]^2 (clamped at 0),
+    normalizes and applies scale and bias in f32, and returns the dtype;
+    the default epsilon is 1e-6 (torch's is 1e-5).
+These layers do the same with explicit casts (no autocast, whose softmax
+and norms differ). Parameters stay f32; `compute_dtype` is the dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+EPS = 1e-6  # flax's LayerNorm and GroupNorm default
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d (NCDHW) computing in `compute_dtype` as flax's nn.Conv does."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.conv3d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(1, -1, 1, 1, 1)
+        return y
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype` as flax's nn.Dense does."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y + self.bias.to(dt) if self.bias is not None else y
+
+
+def _normalize(xf: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax's `_normalize` on the f32 input: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    return (xf - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+class GroupNorm(nn.Module):
+    """flax's nn.GroupNorm(num_groups=min(32, C)) on NCDHW (or NC...) input."""
+
+    def __init__(self, channels: int, compute_dtype: torch.dtype = torch.float32,
+                 eps: float = EPS):
+        super().__init__()
+        self.num_groups = min(32, channels)
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xf = x.float().reshape(b, g, -1)
+        mean = xf.mean(dim=-1)
+        var = ((xf * xf).mean(dim=-1) - mean * mean).clamp(min=0.0)
+        per_channel = (b, c) + (1,) * (x.ndim - 2)
+        mean = mean.repeat_interleave(c // g, dim=1).view(per_channel)
+        var = var.repeat_interleave(c // g, dim=1).view(per_channel)
+        channel = (c,) + (1,) * (x.ndim - 2)
+        y = _normalize(xf.reshape(x.shape), mean, var, self.weight.view(channel),
+                       self.bias.view(channel), self.eps)
+        return y.to(self.compute_dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's nn.LayerNorm over the last dim."""
+
+    def __init__(self, features: int, compute_dtype: torch.dtype = torch.float32,
+                 eps: float = EPS):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        return _normalize(xf, mean, var, self.weight, self.bias, self.eps).to(self.compute_dtype)

@@ -1,6 +1,6 @@
-"""Argparse flags of the NGP trainer (copy of the flags of
-dregnerf_tpu/runtime/config.py that the trainer and the evaluator read:
-same names and defaults), plus `--device`.
+"""Argparse flags of the port's entry points (copy of the flags of
+dregnerf_tpu/runtime/config.py that the NGP trainer, its evaluator and the
+registration evaluator read: same names and defaults), plus `--device`.
 
 Every `--grad_accum` value trains, with or without `--rle_backward`. Of
 the training marchers only `--march_compaction capped` (the default) is
@@ -27,6 +27,19 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--unbounded", action="store_true")
     p.add_argument("--cone_angle", type=float, default=0.0)
     p.add_argument("--multi_blocks", action="store_true")
+    p.add_argument("--json_dir", type=str, default="",
+                   help="directory of objaverse.json and obj_id_names.json "
+                   "(default: the copies in dregnerf_tpu_torch/datasets/register)")
+
+    # registration
+    p.add_argument("--position_embedding_type", type=str, default="sine")
+    p.add_argument("--position_embedding_dim", type=int, default=256)
+    p.add_argument("--position_embedding_scaling", type=float, default=1.0)
+    p.add_argument("--num_downsample", type=int, default=6)
+    p.add_argument("--icp_refine", action="store_true",
+                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 4)")
+    p.add_argument("--render_videos", action="store_true",
+                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5)")
 
     p.add_argument("--ckpt_path", type=str, default="")
     p.add_argument("--no_load_opt", action="store_true")

@@ -1,6 +1,9 @@
 """The port stands alone: neither `dregnerf_tpu_torch` nor `chip_smoke.py`
-imports JAX, its libraries or the JAX package, and every port module
-imports in a process where JAX cannot be imported."""
+imports JAX, its libraries or the JAX package, every port module imports
+in a process where JAX cannot be imported, and the port reads its own
+copies of the registration split JSONs. One `cuda` test holds the
+registration forward on the card against the CPU (this file imports no
+JAX, so it runs on the card with --noconftest)."""
 import ast
 import json
 import os
@@ -66,3 +69,63 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_port_reads_its_own_split_jsons():
+    from dregnerf_tpu_torch.datasets import register_pairs
+
+    json_dir = Path(register_pairs.JSON_DIR).resolve()
+    assert json_dir == PORT / "datasets" / "register"
+    for name in ("objaverse.json", "obj_id_names.json"):
+        assert (json_dir / name).is_file()
+    assert register_pairs.load_split_subjects("", "objaverse", "test")
+
+
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_regtr_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The full-width NeRFRegTr in f32 (TF32 off) on a pair of R = 16 grids:
+    level and validity exact, conditioned features within 1e-3 of their max,
+    poses within 1e-3, on the card and on the CPU with the same weights."""
+    import numpy as np
+    import torch
+
+    from dregnerf_tpu_torch.models.regtr import NeRFRegTr, params_from_jax, random_jax_params
+
+    rng = np.random.default_rng(0)
+    r, data = 16, {}
+    for side in ("src", "tgt"):
+        grid = np.zeros((r, r, r, 7), np.float32)
+        ii = rng.integers(2, r - 2, size=(300, 3))
+        flat = ii[:, 0] * r * r + ii[:, 1] * r + ii[:, 2]
+        grid.reshape(-1, 7)[flat, :3] = (ii + 0.5) / r * 2.0 - 1.0
+        grid.reshape(-1, 7)[flat, 3:] = rng.uniform(size=(300, 4))
+        mask = np.zeros(r ** 3, bool)
+        mask[flat] = True
+        data[f"{side}_grid"], data[f"{side}_mask"] = grid, mask
+    model = NeRFRegTr()
+    model.load_state_dict(params_from_jax(random_jax_params(model, rng), model))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = model({k: torch.as_tensor(v) for k, v in data.items()})
+            got = model.to(cuda_device)({k: torch.as_tensor(v, device=cuda_device)
+                                         for k, v in data.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = {k: v.cpu() for k, v in got.items()}
+    assert int(got["ds_level"]) == int(want["ds_level"])
+    for key in ("src_valid", "tgt_valid"):
+        assert torch.equal(got[key], want[key])
+    for key in ("src_feats", "tgt_feats"):
+        assert (got[key] - want[key]).abs().max() <= 1e-3 * want[key].abs().max()
+    assert (got["pose"] - want["pose"]).abs().max() <= 1e-3
