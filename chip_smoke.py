@@ -43,10 +43,22 @@ Phases, in order; any failure exits non-zero:
      and the top kernels of a profiled forward; RegEvaluator.evaluate();
      the card against the CPU at R = 32 (a crop of the grid), in f32 and
      in bf16, with stated tolerances;
-  8. training under grad_accum "pallas" without the run-length backward
+  8. stage-3 training on that pair (`register train`): RegTrainer at full
+     width in bf16 from the config, 2 + 10 steps on the device-cached,
+     augmented path (finite losses, no skipped step, the parameters moved,
+     optimizer count 12) with ms a step, peak memory, FLOPs of a step
+     against the bf16 peak, and the idle share, device operations and top
+     kernels of one profiled step; one step on a batch whose rgb holds a
+     NaN (parameters, moments and counts bit for bit unchanged);
+     validate(), save_checkpoint, load_checkpoint and RegEvaluator on the
+     trained weights; one f32 step (TF32 off), card against CPU on the
+     R = 32 crop, within REG_STEP_TOL; two steps with --visibility exact
+     through the phase-6 block's NeRF (K2p must launch), their labels
+     against the voxel-mask labels and K2p in the profiler;
+  9. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
-  9. a JSON line of every kernel with its launches on its path, time, plain
+ 10. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -80,6 +92,18 @@ REG_WARMUP, REG_TIMED = 2, 10  # registration forwards before and under the cloc
 REG_ROTATION = (30.0, (1.0, 2.0, 0.5))  # block 1 = block 0 moved: degrees about an axis,
 REG_TRANSLATION = (0.1, 0.0, 0.0)  # then this translation
 PARITY_R = 32  # the card-against-CPU crop
+REG_TRAIN_WARMUP, REG_TRAIN_TIMED = 2, 10  # registration train steps before and under the clock
+REG_EXACT_STEPS = 2  # steps with --visibility exact
+LOSS_NAMES = ("overlap", "nerf_cont", "feature", "corr", "total")
+# one f32 train step, card against CPU at PARITY_R, full width (stated before
+# the first chip run): each loss term and the total within 1e-4 relative,
+# the global gradient norm within 1e-4 relative; the updated parameters
+# within 2.5e-4 (Adam moves an element by about lr = 1e-4 whatever its
+# gradient's size, so an element whose gradient is at the two devices'
+# rounding noise can move either way: at most 2 lr plus the decay term),
+# and at least 99 % of them within 1e-6
+REG_STEP_TOL = {"losses_rel": 1e-4, "grad_norm_rel": 1e-4, "params_abs": 2.5e-4,
+                "params_tight": 1e-6, "params_tight_share": 0.99}
 # card against CPU at PARITY_R, full width (stated before the first chip run;
 # group counts, the level and the validity masks are exact in both dtypes):
 # f32 with TF32 off, conditioned features within 1e-3 of their max |value|;
@@ -893,9 +917,9 @@ def reg_parity_phase(torch, models: dict, item: dict) -> None:
         check(not over, f"parity [{dtype}]: over the tolerance {tol}: {over}")
 
 
-def register_phase(torch, block_dir: str, out_dir: str) -> None:
+def register_phase(torch, block_dir: str, out_dir: str) -> tuple[str, str]:
     """Stage 3 on the block stage 2 extracted on the card (see the module
-    docstring, phase 7)."""
+    docstring, phase 7); returns the pair's (root, subject)."""
     import numpy as np
 
     from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
@@ -966,6 +990,252 @@ def register_phase(torch, block_dir: str, out_dir: str) -> None:
         reg_parity_phase(torch, {"float32": f32, "bfloat16": model}, item)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    return root, subject
+
+
+def _opt_state(trainer) -> list:
+    """Copies of the trainer's parameters, moments and both counts."""
+    opt = trainer.optimizer
+    return [x.clone() for x in (opt.flat, opt.mu, opt.nu, opt.count, opt.schedule_count)]
+
+
+def reg_train_parity_phase(torch, trainer, item) -> None:
+    """One f32 step (TF32 off) on the card and on the CPU from the same
+    state, on a PARITY_R^3 crop of the pair: every loss term, the global
+    gradient norm and the updated parameters within REG_STEP_TOL."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, make_reg_model, to_device
+
+    r = item["src_grid"].shape[0]
+    occ = np.argwhere(item["src_mask"].reshape(r, r, r))
+    centre = occ[np.argmin(((occ - occ.mean(0)) ** 2).sum(1))]
+    lo = np.clip(centre - PARITY_R // 2, 0, r - PARITY_R)
+    window = tuple(slice(a, a + PARITY_R) for a in lo)
+    crop = {"pose": item["pose"]}
+    for side in ("src", "tgt"):
+        crop[f"{side}_grid"] = np.ascontiguousarray(item[f"{side}_grid"][window])
+        crop[f"{side}_mask"] = np.ascontiguousarray(
+            item[f"{side}_mask"].reshape(r, r, r)[window].reshape(-1))
+    n_occ = int(crop["src_mask"].sum())
+    check(n_occ >= 100, f"train parity crop holds {n_occ} occupied voxels")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = RegTrainer(trainer.config, [crop], [], output_dir=trainer.output_dir + f"_{dev}",
+                        model=make_reg_model(trainer.config, torch.float32), device=dev)
+        tr.optimizer.flat.copy_(trainer.optimizer.flat)  # the bf16 run's weights, in f32
+        norms = []
+        real = tr.optimizer.step
+
+        def spy(grad, loss, real=real, norms=norms):
+            norms.append(torch.linalg.vector_norm(grad.double()).item())
+            return real(grad, loss)
+
+        tr.optimizer.step = spy
+        t0 = time.perf_counter()
+        m = tr._step([to_device(crop, tr.device)])
+        out[dev] = ({k: float(v) for k, v in m.items()}, norms[0], tr.optimizer.flat.cpu(),
+                    time.perf_counter() - t0)
+    (mg, ng, pg, tg), (mc, nc, pc, tc) = out["cuda"], out["cpu"]
+    check(mg["skipped_nonfinite"] == mc["skipped_nonfinite"] == 0.0, "train parity: skipped")
+    check(mg["feature_matches"] == mc["feature_matches"], "train parity: feature_matches")
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-3)
+                   for k in ("overlap", "nerf_cont", "feature", "corr", "total"))
+    norm_err = abs(ng - nc) / nc
+    d = (pg - pc).abs()
+    tight = (d <= REG_STEP_TOL["params_tight"]).float().mean().item()
+    print(f"register train parity [f32, TF32 off] R={PARITY_R} crop at {lo.tolist()} ({n_occ} "
+          f"occupied src voxels): losses card {[round(mg[k], 6) for k in LOSS_NAMES]} CPU "
+          f"{[round(mc[k], 6) for k in LOSS_NAMES]} (max rel err {loss_err:.3e}), "
+          f"feature_matches {mg['feature_matches']:.0f}, grad norm card {ng:.6f} CPU {nc:.6f} "
+          f"(rel err {norm_err:.3e}), updated parameters max abs err {d.max().item():.3e}, "
+          f"share within {REG_STEP_TOL['params_tight']:g} {tight:.6f}; card {tg:.3f} s, CPU "
+          f"{tc:.3f} s", flush=True)
+    errors = {"losses_rel": loss_err, "grad_norm_rel": norm_err, "params_abs": d.max().item()}
+    over = {k: v for k, v in errors.items() if v > REG_STEP_TOL[k]}
+    check(not over and tight >= REG_STEP_TOL["params_tight_share"],
+          f"train parity over {REG_STEP_TOL}: {errors}, share {tight}")
+
+
+def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
+    """Stage-3 training at full width in bf16 on the register phase's pair
+    (see the module docstring, phase 8). Returns the K2p launches of the
+    exact-visibility steps."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.eval_nerf_regtr import RegEvaluator
+    from dregnerf_tpu_torch.losses.visibility import exact_visibility_ctx, grid_visibility
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, to_device
+
+    flags = ["--root_dir", root, "--scene", subject, "--out_dir", out_dir, "--val_fraction",
+             "1.0"]
+    cfg = config_parser(flags + ["--expname", "chip_smoke_reg_train"])
+    train_ds = NeRFRegDataset(root, subject_id=subject, split="train", seed=cfg.seed)
+    val_ds = NeRFRegDataset(root, subject_id=subject, split="test", seed=cfg.seed)
+    t0 = time.perf_counter()
+    trainer = RegTrainer(cfg, train_ds, val_ds)  # default device: cuda; model from the config
+    torch.cuda.synchronize()
+    n_params = trainer.optimizer.flat.numel()
+    check(trainer.device.type == "cuda" and trainer.model.dtype == torch.bfloat16
+          and trainer.optimizer.flat.is_cuda, "RegTrainer: bf16 model on the card")
+    print(f"register train: RegTrainer built {time.perf_counter() - t0:.3f} s ({n_params} "
+          f"parameters with infonce_W, one flat f32 buffer)", flush=True)
+
+    # the device-cached, augmented train path: get_raw items, as train() fetches them
+    start = trainer.optimizer.flat.clone()
+    metrics = [trainer.train_iteration(train_ds.get_raw(0)) for _ in range(REG_TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(REG_TRAIN_TIMED + 1)]
+    t1 = time.perf_counter()
+    marks[0].record()
+    for i in range(REG_TRAIN_TIMED):
+        metrics.append(trainer.train_iteration(train_ds.get_raw(0)))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(REG_TRAIN_TIMED)]
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    bad = [(i, k) for i, m in enumerate(values) for k in (*LOSS_NAMES, "feature_matches")
+           if not math.isfinite(m[k])]
+    check(not bad, f"register train: nonfinite losses {bad}")
+    check(all(m["skipped_nonfinite"] == 0.0 for m in values), "register train: a step skipped")
+    count = int(trainer.optimizer.count)
+    check(count == int(trainer.optimizer.schedule_count) == REG_TRAIN_WARMUP + REG_TRAIN_TIMED,
+          f"optimizer::1/0/count {count} after {REG_TRAIN_WARMUP + REG_TRAIN_TIMED} steps")
+    moved = (trainer.optimizer.flat - start).abs()
+    check(moved.max().item() > 0, "register train: the parameters did not change")
+    check(trainer._dev_uploads == 2 and len(trainer._dev_cache) == 2,
+          f"device cache: {trainer._dev_uploads} uploads, {len(trainer._dev_cache)} blocks")
+    print(f"register train [bf16, device-cached + augmented]: {REG_TRAIN_TIMED} steps after "
+          f"{REG_TRAIN_WARMUP}: {statistics.mean(step_ms):.3f} ms/step (CUDA events; min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}), {wall / REG_TRAIN_TIMED * 1e3:.3f} "
+          f"ms/step host wall; peak device memory {peak_gib:.3f} GiB above "
+          f"{base / 2**30:.3f} GiB resident; total first {values[0]['total']:.5f} last "
+          f"{values[-1]['total']:.5f}; losses of the last step "
+          f"{ {k: round(values[-1][k], 5) for k in (*LOSS_NAMES, 'feature_matches')} }; "
+          f"level cell r_p from ds_level; optimizer count {count}; parameters moved up to "
+          f"{moved.max().item():.3e} (mean {moved.mean().item():.3e}); grid uploads "
+          f"{trainer._dev_uploads}", flush=True)
+    del start, moved
+
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_iteration(train_ds.get_raw(0))
+    flops = counter.get_total_flops()
+    bound = flops / BF16_FLOPS * 1e3
+    mean_ms = statistics.mean(step_ms)
+    print(f"register train FLOPs: {flops / 1e12:.4f} TFLOP a step in convolutions and matmuls "
+          f"(forward and backward), bound {bound:.3f} ms at {BF16_FLOPS / 1e12:.0f} TFLOP/s = "
+          f"{bound / mean_ms:.4f} of the measured {mean_ms:.3f} ms", flush=True)
+    busy_ms, _, host = profiled(torch, lambda: trainer.train_iteration(train_ds.get_raw(0)), 1,
+                                "register train profile", "step")
+    print(f"register train idle share of the unprofiled steps: 1 - {busy_ms:.3f} (busy, "
+          f"profiled) / {mean_ms:.3f} = {1 - busy_ms / mean_ms:.4f}", flush=True)
+    for e in host[:5]:
+        print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}",
+              flush=True)
+
+    # the guard on the card: a batch whose rgb holds a NaN changes nothing
+    bad_item = train_ds[0]
+    bad_item["src_grid"].reshape(-1, 7)[np.flatnonzero(bad_item["src_mask"])[0], 3] = np.nan
+    before = _opt_state(trainer)
+    m = trainer.train_iteration(bad_item)
+    same = [torch.equal(a, b) for a, b in zip(_opt_state(trainer), before)]
+    check(float(m["skipped_nonfinite"]) == 1.0 and all(same),
+          f"NaN guard: skipped {float(m['skipped_nonfinite'])}, unchanged "
+          f"(params, mu, nu, count, schedule count) {same}")
+    print(f"register train NaN guard: total {float(m['total'])}, skipped_nonfinite 1, "
+          f"parameters, mu, nu and both counts bit for bit unchanged (count "
+          f"{int(trainer.optimizer.count)})", flush=True)
+    del before
+
+    trainer.iteration = int(trainer.optimizer.count)  # as train() would count them
+    t2 = time.perf_counter()
+    score = trainer.validate(fraction=1.0)
+    t3 = time.perf_counter()
+    check(math.isfinite(score), f"validate score {score}")
+    trainer.save_checkpoint(score)
+    t4 = time.perf_counter()
+    ckpt = os.path.join(trainer.output_dir, "model", "model.ckpt")
+    params = trainer.optimizer.flat.clone()
+    trainer.optimizer.flat.zero_()
+    trainer.load_checkpoint()
+    check(torch.equal(trainer.optimizer.flat, params)
+          and trainer.iteration == int(trainer.optimizer.count),
+          "load_checkpoint: parameters and step as saved")
+    ev_cfg = config_parser(flags + ["--expname", "chip_smoke_reg_train_eval", "--ckpt_path",
+                                    ckpt])
+    ev = RegEvaluator(ev_cfg, val_ds)
+    ev_state = ev.model.state_dict()
+    check(all(torch.equal(ev_state[k], p) for k, p in zip(trainer.param_keys,
+                                                          trainer.optimizer.split(params))),
+          "RegEvaluator: the trained weights")
+    agg = ev.evaluate()["aggregate"]
+    t5 = time.perf_counter()
+    check(math.isfinite(agg["R_mean"]), f"RegEvaluator.evaluate() of the trained model: {agg}")
+    print(f"register train: validate {t3 - t2:.3f} s (score {score:.4f}, -mean RRE over both "
+          f"block orders), save_checkpoint {t4 - t3:.3f} s "
+          f"({os.path.getsize(ckpt) / 2**20:.1f} MiB), load_checkpoint + RegEvaluator + "
+          f"evaluate {t5 - t4:.3f} s (RRE {agg['R_mean']:.4f} deg, RTE {agg['t_mean']:.5f})",
+          flush=True)
+    del ev, ev_state, params
+    torch.cuda.empty_cache()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN convolutions default to TF32
+    try:
+        item = val_ds[0]
+        reg_train_parity_phase(torch, trainer, item)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del trainer
+    torch.cuda.empty_cache()
+
+    # two steps with labels marched through the phase-6 block's NeRF
+    exact = RegTrainer(config_parser(flags + ["--expname", "chip_smoke_reg_exact",
+                                              "--visibility", "exact"]), train_ds, val_ds)
+    gather_rows.launches = 0
+    exact_s = []
+    for _ in range(REG_EXACT_STEPS):
+        t6 = time.perf_counter()
+        m = exact.train_iteration(train_ds[0])
+        torch.cuda.synchronize()
+        exact_s.append(time.perf_counter() - t6)
+        check(all(math.isfinite(float(m[k])) for k in LOSS_NAMES)
+              and float(m["skipped_nonfinite"]) == 0.0, f"exact step: {m}")
+    k2p = gather_rows.launches
+    check(k2p > 0, "exact visibility launched no K2p")
+    item = train_ds[0]
+    batch = to_device(item, exact.device)
+    shares = []
+    with torch.inference_mode():
+        pred = exact.model(batch)
+        model_cfg, rcfg = exact._vis_static
+        for side in ("src", "tgt"):
+            kp, valid = pred[f"{side}_kp"], pred[f"{side}_valid"]
+            ctx = exact._get_vis_ctx(item[f"{side}_nerf_path"])
+            e = exact_visibility_ctx(ctx, model_cfg, rcfg, kp, cfg.vis_buffer_size)[valid]
+            g = grid_visibility(kp, batch[f"{side}_mask"], exact.aabb,
+                                exact.grid_resolution)[valid]
+            shares.append((side, e.mean().item(), g.mean().item(), (e != g).float().mean().item(),
+                           int(valid.sum()), int(ctx.cam_origins.shape[0])))
+    _, kernels, _ = profiled(torch, lambda: exact.train_iteration(train_ds[0]), 1,
+                             "register train exact profile", "step")
+    k2p_prof = sum(e.count for e in kernels if e.key.startswith("gather_rows_f32x4"))
+    check(k2p_prof > 0, "the profiler saw no K2p launch in an exact step")
+    print(f"register train [--visibility exact]: {REG_EXACT_STEPS} steps in "
+          f"{[round(s, 3) for s in exact_s]} s; K2p launches {k2p} (wrapper count), "
+          f"{k2p_prof} in the profiled third step; labels (side, exact visible share, grid "
+          f"visible share, disagreement, valid keypoints, cameras) "
+          f"{[(s, round(a, 4), round(b, 4), round(c, 4), n, c_) for s, a, b, c, n, c_ in shares]}",
+          flush=True)
+    return {"k2p_launches": k2p, "k2p_profiled": k2p_prof}
 
 
 def train_pallas_phase(torch, out_dir: str) -> int:
@@ -1046,7 +1316,9 @@ def main() -> int:
         block_dir = trainer.output_dir
         del trainer
         torch.cuda.empty_cache()
-        timed("register", register_phase, torch, block_dir, out_dir)
+        root, subject = timed("register", register_phase, torch, block_dir, out_dir)
+        torch.cuda.empty_cache()
+        exact = timed("register train", register_train_phase, torch, root, subject, out_dir)
         torch.cuda.empty_cache()
         k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
     timed("K1p device", k1p_device_phase, torch, k1p)
@@ -1066,8 +1338,10 @@ def main() -> int:
                    default_launches["scatter_add_bf16"], k1p),
              device_ms=k1p["device_ms"], host_us=k1p["host_us"], sass_reduction=k1p_sass,
              worst_tol_ratio=k1p["worst_tol_ratio"]),
-        entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
-              default_launches["gather_rows"], k2p),
+        dict(entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
+                   default_launches["gather_rows"], k2p),
+             launches_by_path={"train defaults": default_launches["gather_rows"],
+                               "register train exact visibility": exact["k2p_launches"]}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

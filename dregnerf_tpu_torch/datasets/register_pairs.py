@@ -10,7 +10,9 @@ tgt_T @ inv(src_T) from world_frame_transforms.json. The train split
 jitters the masked xyz (sigma 0.005, clip 0.05), perturbs one side by a
 centroid-centred random SE(3) (std 0.1) with the pose updated, and swaps
 the sides at random with the pose inverted. Decoded blocks sit in an LRU
-cache; items get copies.
+cache; items get copies. `get_raw` returns the cached arrays with the
+per-side transforms instead, and `device_augment` applies the jitter and
+the transform on the grid's device (the trainer's device-cached path).
 """
 from __future__ import annotations
 
@@ -265,3 +267,23 @@ class NeRFRegDataset:
             for k in ("grid", "mask", "nerf_path", "ply_path"):
                 data[f"src_{k}"], data[f"tgt_{k}"] = data[f"tgt_{k}"], data[f"src_{k}"]
             data["pose"] = np.linalg.inv(data["pose"]).astype(np.float32)
+
+
+def device_augment(grid: torch.Tensor, mask: torch.Tensor, p: torch.Tensor,
+                   noise: torch.Tensor | None = None, jitter_scale: float = 0.005,
+                   jitter_clip: float = 0.05) -> torch.Tensor:
+    """The train augmentation of one side on the grid's device (pairs with
+    `get_raw`): the masked xyz jitter, clip(noise * jitter_scale, +-clip),
+    then the centroid-conjugated rigid transform `p` [4, 4] of the masked
+    xyz; rgb, alpha and unmasked rows are untouched. grid [R, R, R, 7],
+    mask flat [R^3] bool, noise [R^3, 3] standard normal (the caller draws
+    it, from a torch.Generator on the device in the trainer). noise=None or
+    jitter_scale=0 skips the jitter."""
+    r3 = mask.shape[0]
+    flat = grid.reshape(r3, 7)
+    xyz = flat[:, :3]
+    if noise is not None and jitter_scale != 0:
+        xyz = xyz + torch.clamp(noise * jitter_scale, -jitter_clip, jitter_clip) * mask[:, None]
+    warped = xyz @ p[:3, :3].T + p[:3, 3]
+    xyz = torch.where(mask[:, None], warped, xyz)
+    return torch.cat([xyz, flat[:, 3:]], dim=-1).reshape(grid.shape)

@@ -38,25 +38,18 @@ def load_reg_checkpoint(path: str):
     """(flax parameter tree of the model, infonce_W, meta) of a RegTrainer
     checkpoint."""
     from dregnerf_tpu_torch.runtime.checkpoint import load_checkpoint
+    from dregnerf_tpu_torch.runtime.reg_trainer import tree_under
 
     flat, meta = load_checkpoint(path)
-    tree: dict = {}
-    for key, value in flat.items():
-        if not key.startswith(MODEL_PREFIX):
-            continue
-        node = tree
-        *dirs, leaf = key[len(MODEL_PREFIX):].split("/")
-        for d in dirs:
-            node = node.setdefault(d, {})
-        node[leaf] = value
     if INFONCE_KEY not in flat:
         raise KeyError(f"{path}: no {INFONCE_KEY}")
-    return tree, flat[INFONCE_KEY], meta
+    return tree_under(flat, MODEL_PREFIX), flat[INFONCE_KEY], meta
 
 
 def save_reg_checkpoint(path: str, tree: dict, infonce_W: np.ndarray, meta: dict) -> None:
-    """Write a checkpoint with the keys of a JAX RegTrainer checkpoint
-    (without its optimizer state)."""
+    """Write a checkpoint with the parameter keys of a JAX RegTrainer
+    checkpoint, without optimizer state (RegTrainer.save_checkpoint writes
+    both)."""
     from dregnerf_tpu_torch.runtime.checkpoint import save_checkpoint
 
     save_checkpoint(path, {"params": {"model": tree, "infonce_W": infonce_W}}, meta)

@@ -15,7 +15,8 @@ def weighted_rigid_transform(a: torch.Tensor, b: torch.Tensor, weights: torch.Te
     """Least-squares rigid transform aligning a -> b.
 
     a, b: [..., N, 3]; weights: [..., N] (negatives count as 0).
-    Returns [..., 3, 4] T with T(a) ~= b; finite when all weights are 0.
+    Returns [..., 3, 4] T with T(a) ~= b; finite when all weights are 0,
+    NaN when an input is not finite.
     """
     a, b = a.float(), b.float()
     w = weights.float().clamp(min=0.0)
@@ -27,14 +28,17 @@ def weighted_rigid_transform(a: torch.Tensor, b: torch.Tensor, weights: torch.Te
     b_c = b - centroid_b[..., None, :]
     cov = torch.einsum("...ni,...n,...nj->...ij", a_c, w_norm, b_c)
 
-    u, _, vt = torch.linalg.svd(cov, full_matrices=False)
+    # a nonfinite input gives a NaN transform, as JAX's SVD does (LAPACK's
+    # raises instead): the trainer's guard then skips the step
+    finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)[..., None, None]
+    u, _, vt = torch.linalg.svd(torch.where(finite, cov, 0.0), full_matrices=False)
     v = vt.transpose(-1, -2)
     ut = u.transpose(-1, -2)
     det = torch.linalg.det(v @ ut)
     d = torch.cat([torch.ones(*det.shape, 2, device=det.device), det[..., None]], dim=-1)
     rot = (v * d[..., None, :]) @ ut
     trans = centroid_b - torch.einsum("...ij,...j->...i", rot, centroid_a)
-    return torch.cat([rot, trans[..., None]], dim=-1)
+    return torch.where(finite, torch.cat([rot, trans[..., None]], dim=-1), torch.nan)
 
 
 def umeyama(src: torch.Tensor, dst: torch.Tensor, with_scale: bool = True,

@@ -30,7 +30,16 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.conv3d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        if dt == torch.bfloat16 and x.device.type == "cpu":
+            # oneDNN's bf16 conv3d weight gradient on the CPU returns garbage
+            # (up to 1e27, varying from call to call) when the input is
+            # smaller than the kernel, as in the deepest blocks at R = 16:
+            # on the CPU, the bf16 operands' products are summed in f32 and
+            # rounded once to bf16, as cuDNN's bf16 kernels do on the card
+            y = F.conv3d(x.to(dt).float(), self.weight.to(dt).float(), None, self.stride,
+                         self.padding).to(dt)
+        else:
+            y = F.conv3d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
         if self.bias is not None:
             y = y + self.bias.to(dt).view(1, -1, 1, 1, 1)
         return y

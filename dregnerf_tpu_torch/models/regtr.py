@@ -14,7 +14,8 @@ before its rows are read by flat index.
 
 Weights cross between the packages: `params_from_jax` takes the flax
 parameter tree (numpy leaves under flax's names) to this module's
-state_dict, `params_to_jax` goes back, and `random_jax_params` draws a
+state_dict, `params_to_jax` goes back (for the parameters, or any tensors
+in their layout: gradients, Adam moments), and `random_jax_params` draws a
 flax-layout tree with flax's initializers.
 """
 from __future__ import annotations
@@ -274,10 +275,11 @@ def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_to_jax(model: nn.Module) -> dict:
+def params_to_jax(model: nn.Module, state: Dict[str, torch.Tensor] | None = None) -> dict:
     """Inverse of `params_from_jax`: the model's parameters as a flax tree
-    of numpy arrays."""
-    sd = model.state_dict()
+    of numpy arrays; or, given `state` (tensors in the parameters' layout
+    under their state_dict keys: gradients, Adam moments), those."""
+    sd = model.state_dict() if state is None else state
     tree: dict = {}
     for flax_path, key, kind, heads in _leaf_map(model):
         a = sd[key].detach().cpu().float().numpy()
@@ -295,7 +297,7 @@ def params_to_jax(model: nn.Module) -> dict:
         *dirs, leaf = flax_path.split("/")
         for d in dirs:
             node = node.setdefault(d, {})
-        node[leaf] = np.ascontiguousarray(a)
+        node[leaf] = np.array(a, order="C")  # a copy: never a view of a parameter
     return tree
 
 

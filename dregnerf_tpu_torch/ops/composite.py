@@ -5,7 +5,8 @@ of (1 - alpha) is one global cumsum of log(1 - alpha), with 1 - alpha
 clipped to [1e-10, 1], re-based by each ray's maximum (its first sample);
 composites are segment sums into num_rays + 1 segments (the last one
 collects padding). Row buffers: an axis-1 cumsum and row sums. The
-surface field of voxel extraction is max_k T_k alpha_k over a row. All f32.
+surface field max_k T_k alpha_k is a segment max over a packed buffer
+(exact visibility) or a row max (voxel extraction). All f32.
 """
 from __future__ import annotations
 
@@ -87,6 +88,16 @@ def composite(packed: PackedSamples, rgbs: torch.Tensor, sigmas: torch.Tensor,
         rgb = rgb + (1.0 - opacity)[:, None] * background
     return RenderOutput(rgb=rgb, opacity=opacity, depth=depth, weights=weights,
                         transmittance=trans, alphas=alphas)
+
+
+def surface_field_per_ray(packed: PackedSamples, sigmas: torch.Tensor) -> torch.Tensor:
+    """Per-ray surface field S = max_i (T_i * alpha_i) over packed samples
+    (a segment max over ray_id); [num_rays], 0 for a ray without samples."""
+    alphas = packed_alphas(packed, sigmas)
+    s = alphas * packed_transmittance(packed, alphas)
+    out = torch.full((packed.num_rays + 1,), -torch.inf, dtype=s.dtype, device=s.device)
+    out = out.scatter_reduce(0, packed.ray_id, s, reduce="amax", include_self=False)
+    return torch.clamp(out[: packed.num_rays], min=0.0)
 
 
 def surface_field_rows(rows: RowSamples, sigmas: torch.Tensor) -> torch.Tensor:

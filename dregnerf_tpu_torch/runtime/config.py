@@ -1,6 +1,7 @@
 """Argparse flags of the port's entry points (copy of the flags of
 dregnerf_tpu/runtime/config.py that the NGP trainer, its evaluator and the
-registration evaluator read: same names and defaults), plus `--device`.
+registration trainer and evaluator read: same names and defaults), plus
+`--device`.
 
 Every `--grad_accum` value trains, with or without `--rle_backward`. Of
 the training marchers only `--march_compaction capped` (the default) is
@@ -14,7 +15,10 @@ import argparse
 def config_parser(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("--seed", type=int, default=3407)
+    p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--max_iterations", type=int, default=20000)
+    p.add_argument("--lr", type=float, default=1e-4,
+                   help="registration learning rate (halved at 34000 k updates, k = 1..4)")
 
     p.add_argument("--dataset", type=str, default="", choices=["objaverse"])
     p.add_argument("--factor", type=int, default=4, choices=[1, 2, 4, 8])
@@ -36,6 +40,7 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--position_embedding_dim", type=int, default=256)
     p.add_argument("--position_embedding_scaling", type=float, default=1.0)
     p.add_argument("--num_downsample", type=int, default=6)
+    p.add_argument("--robust_loss", action="store_true")
     p.add_argument("--icp_refine", action="store_true",
                    help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 4)")
     p.add_argument("--render_videos", action="store_true",
@@ -43,7 +48,14 @@ def config_parser(argv=None) -> argparse.Namespace:
 
     p.add_argument("--ckpt_path", type=str, default="")
     p.add_argument("--no_load_opt", action="store_true")
+    p.add_argument("--no_load_scheduler", action="store_true",
+                   help="accepted, as in the JAX package, where the schedule's count is "
+                   "part of the optimizer state (--no_load_opt)")
 
+    p.add_argument("--enable_tensorboard", action="store_true",
+                   help="not ported: says so; scalars go to log.txt and log.jsonl")
+    p.add_argument("--enable_visdom", action="store_true",
+                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5)")
     p.add_argument("--n_tensorboard", type=int, default=30)
     p.add_argument("--n_validation", type=int, default=2500)
     p.add_argument("--n_checkpoint", type=int, default=5000)
@@ -67,6 +79,36 @@ def config_parser(argv=None) -> argparse.Namespace:
                    "encoder levels (ops/rle.py)")
     p.add_argument("--march_compaction", type=str, default="capped",
                    choices=["compact", "capped", "quota", "rows"])
+
+    # registration training
+    p.add_argument("--reg_batch_size", type=int, default=1,
+                   help="pairs per registration train step (the gradient of their mean "
+                   "loss; the reference trains at batch 1)")
+    p.add_argument("--reg_device_cache", type=int, default=32,
+                   help="voxel-grid blocks kept on the device for registration training, "
+                   "with the augmentation applied there; 0 = the host path (each item "
+                   "augmented on the host and uploaded)")
+    p.add_argument("--val_fraction", type=float, default=0.2,
+                   help="fraction of the val pairs per validation; 1.0 on small held-out "
+                   "sets, so that model_best is not a one-pair draw")
+    p.add_argument("--visibility", type=str, default="grid", choices=["grid", "exact"],
+                   help="overlap labels: 'grid' = voxel-mask lookup, 'exact' = march the "
+                   "blocks' NeRF checkpoints every step")
+    p.add_argument("--vis_max_cameras", type=int, default=128,
+                   help="cameras of a NeRF checkpoint used by exact visibility")
+    p.add_argument("--vis_buffer_size", type=int, default=1 << 16,
+                   help="packed samples per ray chunk of exact visibility")
+    p.add_argument("--vis_cache_size", type=int, default=8,
+                   help="NeRF contexts kept on the device for exact visibility")
+    p.add_argument("--vis_exact_warped", action="store_true",
+                   help="exact mode: also march the warped keypoints (the gradient-free "
+                   "nerf-consistency labels) instead of the voxel-mask lookup")
+    p.add_argument("--mesh_shape", type=str, default="",
+                   help="not ported: a non-empty value raises NotImplementedError "
+                   "(ROADMAP.md queue 1 item 5)")
+    p.add_argument("--watchdog_s", type=float, default=1200,
+                   help="not ported: the hang watchdog of registration training "
+                   "(ROADMAP.md queue 1 item 5); a non-zero value says so")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     return p.parse_args(argv)

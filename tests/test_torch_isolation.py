@@ -81,6 +81,58 @@ def test_port_reads_its_own_split_jsons():
     assert register_pairs.load_split_subjects("", "objaverse", "test")
 
 
+def test_stage3_training_modules_are_in_the_port():
+    """The registration-training modules and the CLI twin exist in the
+    package, so the import checks above cover them."""
+    for rel in ("losses/registration.py", "losses/visibility.py", "runtime/reg_optim.py",
+                "runtime/reg_trainer.py", "train_nerf_regtr.py"):
+        assert (PORT / rel) in PORT_FILES, rel
+
+
+def _pair_scene(root: Path, r: int = 8) -> None:
+    """Two blocks of one scene (identity world frames), voxel artifacts only."""
+    import numpy as np
+    import torch
+
+    from dregnerf_tpu_torch.datasets.base import save_world_frame_transforms
+
+    flat = np.arange(0, r ** 3, 7)
+    grid = np.zeros((r ** 3, 7), np.float32)
+    grid[flat, :3] = np.random.default_rng(0).uniform(-1, 1, (len(flat), 3))
+    grid[flat, 3:] = 0.5
+    for b in (0, 1):
+        block = root / "nerf_models" / "s" / f"block_{b}"
+        block.mkdir(parents=True)
+        torch.save(torch.from_numpy(grid.reshape(r, r, r, 7)), block / "voxel_grid.pt")
+        torch.save(torch.from_numpy(flat.astype(np.int64)), block / "voxel_mask.pt")
+        (block / "model.ckpt").write_bytes(b"")
+    (root / "images" / "s").mkdir(parents=True)
+    save_world_frame_transforms(str(root / "images" / "s"), {0: np.eye(4), 1: np.eye(4)})
+
+
+def test_training_entry_points_run_on_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """RegTrainer, the train CLI twin and the exact-visibility loader take
+    cuda unless given a device, and raise without CUDA."""
+    import torch
+
+    from dregnerf_tpu_torch import train_nerf_regtr
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.losses.visibility import load_visibility_context
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer
+
+    _pair_scene(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--root_dir", str(tmp_path), "--scene", "s", "--out_dir", str(tmp_path / "out")]
+    ds = NeRFRegDataset(str(tmp_path), subject_id="s", split="train")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RegTrainer(config_parser(argv), ds, ds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_nerf_regtr.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_visibility_context(str(tmp_path / "no_such.ckpt"))
+
+
 @pytest.fixture
 def cuda_device():
     import torch
