@@ -53,8 +53,10 @@ Phases, in order; any failure exits non-zero:
      validate(), save_checkpoint, load_checkpoint and RegEvaluator on the
      trained weights; one f32 step (TF32 off), card against CPU on the
      R = 32 crop, within REG_STEP_TOL; two steps with --visibility exact
-     through the phase-6 block's NeRF (K2p must launch), their labels
-     against the voxel-mask labels and K2p in the profiler;
+     through the phase-6 block's NeRF (K2p must launch; the first call on
+     each level table of both fields held bit for bit against
+     index_select on the path's own inputs), their labels against the
+     voxel-mask labels and K2p in the profiler;
   9. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
@@ -1067,7 +1069,8 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
     from dregnerf_tpu_torch.eval_nerf_regtr import RegEvaluator
     from dregnerf_tpu_torch.losses.visibility import exact_visibility_ctx, grid_visibility
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
+    from dregnerf_tpu_torch.ops import packed_grid
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, to_device
 
@@ -1197,21 +1200,53 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     del trainer
     torch.cuda.empty_cache()
 
-    # two steps with labels marched through the phase-6 block's NeRF
+    # two steps with labels marched through the phase-6 block's NeRF; each
+    # K2p call of the path keeps its inputs and output (first call per table)
     exact = RegTrainer(config_parser(flags + ["--expname", "chip_smoke_reg_exact",
                                               "--visibility", "exact"]), train_ds, val_ds)
+    gathers, calls = {}, [0]
+    real_gather = packed_grid.gather_rows
+
+    def recorded(table, idx):
+        out = real_gather(table, idx)
+        calls[0] += 1
+        gathers.setdefault(table.data_ptr(), (table, idx, out))
+        return out
+
+    packed_grid.gather_rows = recorded
     gather_rows.launches = 0
     exact_s = []
-    for _ in range(REG_EXACT_STEPS):
-        t6 = time.perf_counter()
-        m = exact.train_iteration(train_ds[0])
-        torch.cuda.synchronize()
-        exact_s.append(time.perf_counter() - t6)
-        check(all(math.isfinite(float(m[k])) for k in LOSS_NAMES)
-              and float(m["skipped_nonfinite"]) == 0.0, f"exact step: {m}")
+    try:
+        for _ in range(REG_EXACT_STEPS):
+            t6 = time.perf_counter()
+            m = exact.train_iteration(train_ds[0])
+            torch.cuda.synchronize()
+            exact_s.append(time.perf_counter() - t6)
+            check(all(math.isfinite(float(m[k])) for k in LOSS_NAMES)
+                  and float(m["skipped_nonfinite"]) == 0.0, f"exact step: {m}")
+    finally:
+        packed_grid.gather_rows = real_gather
     k2p = gather_rows.launches
-    check(k2p > 0, "exact visibility launched no K2p")
+    check(k2p > 0 and k2p == calls[0],
+          f"exact visibility: {k2p} K2p launches, {calls[0]} gather calls")
     item = train_ds[0]
+    # K2p on the path's own tables and slots, bit for bit against index_select
+    levels = {}
+    for side in ("src", "tgt"):
+        for lvl, table in enumerate(exact._get_vis_ctx(item[f"{side}_nerf_path"])
+                                    .params["packed_table"]):
+            levels.setdefault(table.data_ptr(), []).append((side, lvl))
+    check(set(gathers) == set(levels),
+          f"exact visibility gathered {len(gathers)} tables, the fields hold {len(levels)}")
+    for ptr, (table, idx, out) in gathers.items():
+        check(torch.equal(out, gather_rows_plain(table, idx)),
+              f"K2p on the exact path at {levels[ptr]}: not equal to index_select")
+    print(f"register train [--visibility exact]: K2p held bit for bit against index_select "
+          f"on the first call of each of {len(gathers)} tables (side, level) "
+          f"{sorted(v for vs in levels.values() for v in vs)}: "
+          f"{[tuple(t.shape) for t, _, _ in gathers.values()]} rows, "
+          f"{[int(i.numel()) for _, i, _ in gathers.values()]} slots", flush=True)
+    del gathers
     batch = to_device(item, exact.device)
     shares = []
     with torch.inference_mode():

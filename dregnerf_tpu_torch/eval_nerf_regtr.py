@@ -37,8 +37,7 @@ INFONCE_KEY = "params::infonce_W"
 def load_reg_checkpoint(path: str):
     """(flax parameter tree of the model, infonce_W, meta) of a RegTrainer
     checkpoint."""
-    from dregnerf_tpu_torch.runtime.checkpoint import load_checkpoint
-    from dregnerf_tpu_torch.runtime.reg_trainer import tree_under
+    from dregnerf_tpu_torch.runtime.checkpoint import load_checkpoint, tree_under
 
     flat, meta = load_checkpoint(path)
     if INFONCE_KEY not in flat:

@@ -43,6 +43,19 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def tree_under(flat: Dict[str, np.ndarray], prefix: str) -> dict:
+    """The nested tree of the flat checkpoint keys that start with `prefix`."""
+    tree: dict = {}
+    for key, value in flat.items():
+        if key.startswith(prefix):
+            node = tree
+            *dirs, leaf = key[len(prefix):].split("/")
+            for d in dirs:
+                node = node.setdefault(d, {})
+            node[leaf] = value
+    return tree
+
+
 def save_checkpoint(path: str, state: Dict[str, Any], meta: Dict[str, Any]) -> None:
     """Write `state` (trees of arrays, keyed by name) + JSON-able `meta`."""
     flat: Dict[str, np.ndarray] = {}

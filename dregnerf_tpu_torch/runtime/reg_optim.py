@@ -78,8 +78,9 @@ class GuardedAdamW:
         0-dim bool `finite` (False: nothing changed)."""
         finite = torch.isfinite(loss) & torch.isfinite(grad).all()
         g = torch.where(finite, grad, 0.0)
-        # a sum of squares: the CPU's f32 vector_norm is off by 0.5 % over
-        # the 61 M parameters, its cascaded sum by 1e-7
+        # a sum of squares: the CPU's f32 vector_norm does not cascade its
+        # sum (9.5e-4 off at 2^24 elements, test_clip_norm_is_accurate_on_a_
+        # large_buffer); the cascaded sum is within 1e-6 there
         norm = torch.sqrt((g * g).sum())
         g = torch.where(norm < MAX_GRAD_NORM, g, g / norm * MAX_GRAD_NORM)
 

@@ -62,19 +62,6 @@ def to_device(item: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(item[k], device=device) for k in BATCH_KEYS}
 
 
-def tree_under(flat: Dict[str, np.ndarray], prefix: str) -> dict:
-    """The nested tree of the flat checkpoint keys that start with `prefix`."""
-    tree: dict = {}
-    for key, value in flat.items():
-        if key.startswith(prefix):
-            node = tree
-            *dirs, leaf = key[len(prefix):].split("/")
-            for d in dirs:
-                node = node.setdefault(d, {})
-            node[leaf] = value
-    return tree
-
-
 def compute_losses(model: NeRFRegTr, infonce_W: torch.Tensor, batch: Dict[str, torch.Tensor],
                    aabb: torch.Tensor, grid_resolution: int, robust: bool = True,
                    visibility_fns: tuple | None = None,
@@ -143,18 +130,23 @@ def compute_losses(model: NeRFRegTr, infonce_W: torch.Tensor, batch: Dict[str, t
     return total, losses, pred
 
 
+def exact_visibility_fns(contexts, buffer_size: int = 1 << 16) -> tuple:
+    """(src, tgt) label fns over ((ctx, model_cfg, rcfg) of each side) that
+    march camera-to-point rays through the side's NeRF."""
+    from dregnerf_tpu_torch.losses.visibility import exact_visibility_ctx
+
+    return tuple((lambda pts, c=c, m=m, r=r: exact_visibility_ctx(c, m, r, pts, buffer_size))
+                 for c, m, r in contexts)
+
+
 def make_exact_visibility_fns(src_ckpt: str, tgt_ckpt: str, max_cameras: int = 128,
                               buffer_size: int = 1 << 16, device=None):
     """(src, tgt) label fns that march camera-to-point rays through the two
     NeRF checkpoints, each loaded once."""
-    from dregnerf_tpu_torch.losses.visibility import (exact_visibility_ctx,
-                                                      load_visibility_context)
+    from dregnerf_tpu_torch.losses.visibility import load_visibility_context
 
-    def load(path):
-        ctx, model_cfg, rcfg = load_visibility_context(path, max_cameras, device)
-        return lambda pts: exact_visibility_ctx(ctx, model_cfg, rcfg, pts, buffer_size)
-
-    return load(src_ckpt), load(tgt_ckpt)
+    return exact_visibility_fns([load_visibility_context(p, max_cameras, device)
+                                 for p in (src_ckpt, tgt_ckpt)], buffer_size)
 
 
 class RegTrainer:
@@ -312,13 +304,9 @@ class RegTrainer:
         """A step with labels marched through the blocks' NeRFs (the
         warped keypoints take the voxel-mask labels unless
         --vis_exact_warped); guarded like every step."""
-        from dregnerf_tpu_torch.losses.visibility import exact_visibility_ctx
-
-        buffer_size = int(self.config.vis_buffer_size)
         ctxs = [self._get_vis_ctx(item[f"{side}_nerf_path"]) for side in ("src", "tgt")]
-        model_cfg, rcfg = self._vis_static
-        vis_fns = tuple((lambda pts, c=c: exact_visibility_ctx(c, model_cfg, rcfg, pts,
-                                                               buffer_size)) for c in ctxs)
+        vis_fns = exact_visibility_fns([(c, *self._vis_static) for c in ctxs],
+                                       int(self.config.vis_buffer_size))
         warped = None
         if not self.config.vis_exact_warped:
             warped = tuple((lambda pts, s=side: grid_visibility(
@@ -465,6 +453,7 @@ class RegTrainer:
         """Fill a flat optimizer-layout tensor from the checkpoint tree under
         `prefix` (`<prefix>model/...` and `<prefix>infonce_W`)."""
         from dregnerf_tpu_torch.models.regtr import params_from_jax
+        from dregnerf_tpu_torch.runtime.checkpoint import tree_under
 
         state = params_from_jax(tree_under(ckpt, prefix + "model/"), self.model)
         *views, w = self.optimizer.split(flat)

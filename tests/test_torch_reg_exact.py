@@ -81,6 +81,35 @@ def test_exact_visibility_steps(exact_root, tmp_path, warped):
     assert len(tr._vis_cache) == 2 and int(tr.optimizer.count) == 2
 
 
+def test_exact_steps_gather_from_every_level_of_both_fields(exact_root, tmp_path,
+                                                            monkeypatch):
+    """The rows of an exact step come through packed_grid.gather_rows (K2p
+    on the card) from each level table of the two NeRF contexts and from
+    no other table: the map that chip_smoke.py uses to hold the path's own
+    K2p calls against index_select."""
+    from dregnerf_tpu_torch.ops import packed_grid
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows_plain
+
+    real, seen = packed_grid.gather_rows, {}
+
+    def recorded(table, idx):
+        out = real(table, idx)
+        seen.setdefault(table.data_ptr(), (table, idx, out))
+        return out
+
+    monkeypatch.setattr(packed_grid, "gather_rows", recorded)
+    tr = port_trainer(exact_root, str(tmp_path), ["--visibility", "exact", "--vis_max_cameras",
+                                                  "4", "--vis_buffer_size", str(1 << 12)])
+    item = tr.train_dataset[0]
+    tr.train_iteration(item)
+    tables = {t.data_ptr() for side in ("src", "tgt")
+              for t in tr._get_vis_ctx(item[f"{side}_nerf_path"]).params["packed_table"]}
+    assert len(tables) == 2 * len(tr._get_vis_ctx(item["src_nerf_path"]).params["packed_table"])
+    assert set(seen) == tables
+    for table, idx, out in seen.values():
+        assert torch.equal(out, gather_rows_plain(table, idx))
+
+
 def test_exact_visibility_refuses_a_mixed_fleet(exact_root, tmp_path):
     other = _ngp_checkpoint(str(tmp_path / "other.ckpt"), log2_table_size=9)
     tr = port_trainer(exact_root, str(tmp_path), ["--visibility", "exact"])
