@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. the device: require CUDA, print the card's name and power limit;
-  2. the build: compile every kernel of dregnerf_tpu_torch/csrc (one nvcc
-     each, all started together), and check in `cuobjdump -sass` that K1p
+  2. the build: compile every source of dregnerf_tpu_torch/csrc (nvcc for
+     each kernel, g++ for the host C++ of FGR/RANSAC, all started
+     together), and check in `cuobjdump -sass` that K1p
      issues one 16-byte bf16x8 reduction per 8 features;
   3. each kernel against its plain version at the main path's shapes
      (2^18 rows of 64 floats; tables of 4096 and 2^19 rows), with times,
@@ -40,10 +41,18 @@ Phases, in order; any failure exits non-zero:
      JAX-layout checkpoint and read by the eval twin (RegEvaluator); the
      full-width NeRFRegTr forward in bf16 and in f32 (TF32 off) with a
      rigid-pose check, ms a pair, peak memory, FLOPs against the peak rate
-     and the top kernels of a profiled forward; RegEvaluator.evaluate();
-     the card against the CPU at R = 32 (a crop of the grid), in f32 and
-     in bf16, with stated tolerances;
-  8. stage-3 training on that pair (`register train`): RegTrainer at full
+     and the top kernels of a profiled forward; RegEvaluator.evaluate()
+     with --icp_refine (the ICP polish and the classical baseline, its
+     fgr_metrics_test.json); the card against the CPU at R = 32 (a crop of
+     the grid), in f32 and in bf16, with stated tolerances;
+  8. classical registration on that pair's voxel point clouds
+     (`classical`): icp_refine from the RegTr pose, global_colored_icp and
+     best_global_registration(refine=True) on the card, timed (wall, CUDA
+     events, one profiled icp_refine, the host's FGR/RANSAC seconds apart,
+     the bound of a fused distance-and-argmin kernel); the card against the
+     CPU (CLASSICAL_PARITY_TOL); the results against the known pose
+     (CLASSICAL_TOL); no race candidate may carry an error;
+  9. stage-3 training on that pair (`register train`): RegTrainer at full
      width in bf16 from the config, 2 + 10 steps on the device-cached,
      augmented path (finite losses, no skipped step, the parameters moved,
      optimizer count 12) with ms a step, peak memory, FLOPs of a step
@@ -55,12 +64,13 @@ Phases, in order; any failure exits non-zero:
      R = 32 crop, within REG_STEP_TOL; two steps with --visibility exact
      through the phase-6 block's NeRF (K2p must launch; the first call on
      each level table of both fields held bit for bit against
-     index_select on the path's own inputs), their labels against the
+     index_select on the path's own inputs, and timed alone against its
+     bytes bound from its distinct rows), their labels against the
      voxel-mask labels and K2p in the profiler;
-  9. training under grad_accum "pallas" without the run-length backward
+ 10. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
- 10. a JSON line of every kernel with its launches on its path, time, plain
+ 11. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -116,6 +126,19 @@ PARITY_TOL = {
     "bfloat16": {"features": 0.25, "keypoints": 1e-5, "rotation_deg": 10.0,
                  "translation": 0.05},
 }
+# the classical phase (stated before the first chip run): against the known
+# pose, global_colored_icp within 2 deg and 0.02 and best_global_registration
+# within the JAX test's 3 deg and 0.05 (tests/test_reg_training.py); card
+# against CPU on the same inputs and seed: icp_refine's pose within 0.05 deg
+# and 1e-4 and its joint score within 1e-4 + 1e-4 |score|, and each of
+# global_colored_icp's 24 coarse scores within the same (a converged score
+# is the f32 rounding of |x|^2 - 2 x.y + |y|^2 under a square root)
+CLASSICAL_TOL = {"gicp": (2.0, 0.02), "race": (3.0, 0.05)}
+CLASSICAL_PARITY_TOL = {"rotation_deg": 0.05, "translation": 1e-4, "score_abs": 1e-4,
+                        "score_rel": 1e-4}
+# icp_refine's card-against-CPU init: the known pose after this error (degrees
+# about an axis, then a translation), as a trained RegTr would leave it
+ICP_INIT_ERROR = (8.0, (1.0, -1.0, 0.5), (0.03, 0.02, -0.03))
 N_ROWS, WIDTH = 1 << 18, 64  # rows of one encoder level's gather or scatter a step
 # (table rows, run length of equal slots) of the four encoder levels of a
 # step: a ray's steps per cell at each level (1024 steps over a 2-unit box)
@@ -935,7 +958,7 @@ def register_phase(torch, block_dir: str, out_dir: str) -> tuple[str, str]:
     T = build_reg_scene(torch, block_dir, root, subject)
     ckpt = os.path.join(out_dir, "chip_smoke_reg", "model", "model.ckpt")
     cfg = config_parser(["--out_dir", out_dir, "--expname", "chip_smoke_reg", "--root_dir",
-                         root, "--scene", subject, "--ckpt_path", ckpt])
+                         root, "--scene", subject, "--ckpt_path", ckpt, "--icp_refine"])
     dataset = NeRFRegDataset(root, subject_id=subject, split="test", seed=cfg.seed)
     check(len(dataset) == 1, "the two-block scene loads")
 
@@ -977,10 +1000,23 @@ def register_phase(torch, block_dir: str, out_dir: str) -> tuple[str, str]:
     check(agg["num_pairs"] == 1 and math.isfinite(agg["R_mean"])
           and os.path.exists(os.path.join(ev.output_dir, "metrics_test.json")),
           f"RegEvaluator.evaluate(): {agg}")
-    print(f"RegEvaluator.evaluate(): {t4 - t3:.3f} s wall for {agg['num_pairs']} pair "
-          f"(forward {metrics['per_scene'][subject]['time']:.4f} s), RRE {agg['R_mean']:.4f} "
-          f"deg, RTE {agg['t_mean']:.5f} (random weights: no accuracy expected); wrote "
-          f"{sorted(os.listdir(os.path.join(ev.output_dir, subject)))}", flush=True)
+    entry = metrics["per_scene"][subject]
+    check(all(k in entry for k in ("R_error_icp_deg", "t_error_icp", "icp_rms", "icp_inliers",
+                                   "icp_time")), f"--icp_refine: per-scene keys {sorted(entry)}")
+    with open(os.path.join(ev.output_dir, "fgr_metrics_test.json")) as f:
+        fgr = json.load(f)
+    check(fgr["aggregate"]["num_pairs"] == 1 and subject in fgr["per_scene"],
+          f"fgr_metrics_test.json: {fgr}")
+    base = fgr["per_scene"][subject]
+    print(f"RegEvaluator.evaluate() --icp_refine: {t4 - t3:.3f} s wall for {agg['num_pairs']} "
+          f"pair (forward {entry['time']:.4f} s, ICP polish {entry['icp_time']:.3f} s), RRE "
+          f"{agg['R_mean']:.4f} deg, RTE {agg['t_mean']:.5f} (random weights: no accuracy "
+          f"expected), after ICP {entry['R_error_icp_deg']:.4f} deg, "
+          f"{entry['t_error_icp']:.5f} ({entry['icp_inliers']} inliers); classical baseline "
+          f"{base['R_error_deg']:.4f} deg, {base['t_error']:.5f} in {base['time']:.3f} s, "
+          f"winner {base['winner']}; wrote "
+          f"{sorted(os.listdir(os.path.join(ev.output_dir, subject)))} and "
+          f"{sorted(f for f in os.listdir(ev.output_dir) if f.endswith('.json'))}", flush=True)
 
     f32 = make_reg_model(cfg, torch.float32)
     f32.load_state_dict(model.state_dict())
@@ -993,6 +1029,203 @@ def register_phase(torch, block_dir: str, out_dir: str) -> tuple[str, str]:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return root, subject
+
+
+def pose_gap(np, a, b) -> tuple[float, float]:
+    """(degrees, translation) between two [3|4, 4] poses; the angle from
+    both the sine and the cosine of the relative rotation."""
+    a, b = np.asarray(a, np.float64)[:3], np.asarray(b, np.float64)[:3]
+    rel = a[:, :3].T @ b[:, :3]
+    skew = rel - rel.T
+    sin = np.linalg.norm([skew[2, 1], skew[0, 2], skew[1, 0]]) / 2
+    cos = (np.trace(rel) - 1) / 2
+    return float(np.degrees(np.arctan2(sin, cos))), float(np.linalg.norm(a[:, 3] - b[:, 3]))
+
+
+def device_call(torch, fn):
+    """(fn(), wall ms, CUDA-event ms) from a synchronised start."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def _scores_close(a: float, b: float) -> bool:
+    tol = CLASSICAL_PARITY_TOL
+    return abs(a - b) <= tol["score_abs"] + tol["score_rel"] * abs(a)
+
+
+def classical_phase(torch, root: str, subject: str, out_dir: str) -> None:
+    """Classical registration on the register phase's pair (its voxel point
+    clouds and known pose): icp_refine from the RegTr pose that the register
+    phase's evaluate() wrote, global_colored_icp and one
+    best_global_registration(refine=True) on the card, timed; the card
+    against the CPU (CLASSICAL_PARITY_TOL); the accuracy against the known
+    pose (CLASSICAL_TOL)."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.io.ply import read_ply
+
+    from dregnerf_tpu_torch.runtime.config import config_parser
+
+    item = NeRFRegDataset(root, subject_id=subject, split="test", seed=config_parser([]).seed)[0]
+    src, src_cols = read_ply(item["src_ply_path"])
+    tgt, tgt_cols = read_ply(item["tgt_ply_path"])
+    gt = np.asarray(item["pose"], np.float64)[:3, :4]
+    with open(os.path.join(out_dir, "chip_smoke_reg", "eval", subject,
+                           "transformation_est.json")) as f:
+        written = json.load(f)
+    check(np.allclose(written["pose_gt"], gt, atol=1e-5),
+          "the classical phase reads the register phase's pair")
+    classical_checks(torch, src, src_cols, tgt, tgt_cols, gt,
+                     np.asarray(written["pose_est"], np.float32))
+
+
+def classical_checks(torch, src, src_cols, tgt, tgt_cols, gt, regtr) -> None:
+    """See classical_phase."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.registration import global_icp, pipeline
+    from dregnerf_tpu_torch.registration.icp import _prep, icp_refine, score_pose_feat
+
+    voxel = 2.0 / 128 * 2  # the evaluator's ICP voxel at --grid_resolution 128
+    colors = dict(src_colors=src_cols, tgt_colors=tgt_cols)
+    n_src, n_tgt = min(len(src), 4096), min(len(tgt), 4096)
+    print(f"classical: {len(src)} / {len(tgt)} points (src / tgt), colours "
+          f"{src_cols.dtype if src_cols is not None else None}, voxel {voxel}", flush=True)
+
+    def joint_score(pose, dev):
+        """icp_refine's winner score of `pose`: the joint (xyz, 0.5 rgb) score
+        on the points that icp_refine's seed picks."""
+        rng = np.random.default_rng(0)
+        s, sc, sv = _prep(src, src_cols, 4096, rng)
+        t, tc, tv = _prep(tgt, tgt_cols, 4096, rng)
+        args = [torch.as_tensor(a, device=dev) for a in (s, t, 0.5 * sc, 0.5 * tc, sv, tv,
+                                                          np.asarray(pose, np.float32))]
+        return float(score_pose_feat(*args))
+
+    # icp_refine from the RegTr pose: twice on the card (the first call
+    # creates the cuBLAS and cuSOLVER handles), then profiled
+    runs = [device_call(torch, lambda: icp_refine(src, tgt, regtr, voxel_size=voxel,
+                                                  device="cuda", **colors)) for _ in range(2)]
+    (refined, rms, cnt), wall, ev = runs[1]
+    busy, _, _ = profiled(torch, lambda: icp_refine(src, tgt, regtr, voxel_size=voxel,
+                                                    device="cuda", **colors),
+                          1, "classical icp_refine profile", "call")
+    # the bound of a fused distance-and-argmin kernel: 2 (3 + 3) operations
+    # per (run, src, tgt) pair and iteration, 6 runs of 30 iterations, and
+    # the score of 7 candidates, in f32; the inputs are a few hundred KB
+    flops = 2 * 6 * n_src * n_tgt * (30 * 6 + 7)
+    bound = bound_ms(0.0, flops)
+    err = pose_gap(np, refined, gt) if refined is not None else (math.nan, math.nan)
+    print(f"classical icp_refine from the RegTr pose (card): {wall:.3f} ms wall, {ev:.3f} ms "
+          f"CUDA events (first call {runs[0][1]:.3f} ms wall), device busy {busy:.3f} ms; "
+          f"RRE {err[0]:.4f} deg, RTE {err[1]:.5f} against the known pose (RegTr pose "
+          f"{pose_gap(np, regtr, gt)[0]:.4f} deg); rms {rms:.6f}, {cnt} inliers; bound of a "
+          f"fused distance-and-argmin kernel {bound:.4f} ms ({flops / 1e9:.3f} GFLOP at "
+          f"{F32_FLOPS / 1e12:.0f} TFLOP/s, operations) = {bound / busy:.4f} of the busy time",
+          flush=True)
+
+    # card against CPU, icp_refine from a RegTr-quality init
+    off = _rigid(np, ICP_INIT_ERROR[0], ICP_INIT_ERROR[1], ICP_INIT_ERROR[2])
+    init = (off @ np.vstack([gt, [0, 0, 0, 1]]))[:3].astype(np.float32)
+    card, _, _ = device_call(torch, lambda: icp_refine(src, tgt, init, voxel_size=voxel,
+                                                       device="cuda", **colors))
+    t0 = time.perf_counter()
+    cpu = icp_refine(src, tgt, init, voxel_size=voxel, device="cpu", **colors)
+    cpu_s = time.perf_counter() - t0
+    check(card[0] is not None and cpu[0] is not None, "icp_refine from a RegTr-quality init")
+    gap = pose_gap(np, card[0], cpu[0])
+    scores = joint_score(card[0], "cuda"), joint_score(cpu[0], "cpu")
+    tol = CLASSICAL_PARITY_TOL
+    print(f"classical icp_refine card against CPU (init {ICP_INIT_ERROR[0]} deg, "
+          f"{np.linalg.norm(ICP_INIT_ERROR[2]):.4f} off): rotation {gap[0]:.2e} deg "
+          f"(tolerance {tol['rotation_deg']}), translation {gap[1]:.2e} "
+          f"({tol['translation']}), joint score {scores[0]:.6e} / {scores[1]:.6e} (gap "
+          f"{abs(scores[0] - scores[1]):.2e}), rms {card[1]:.6f} / {cpu[1]:.6f}, inliers "
+          f"{card[2]} / {cpu[2]}; to the known pose {pose_gap(np, card[0], gt)[0]:.4f} deg; "
+          f"CPU {cpu_s:.3f} s", flush=True)
+    check(gap[0] <= tol["rotation_deg"] and gap[1] <= tol["translation"]
+          and _scores_close(*scores), f"icp_refine card against CPU: {gap}, {scores}")
+
+    # global_colored_icp: its coarse race recorded on the card, re-run on the CPU
+    races = []
+    real_race = global_icp._coarse_race
+
+    def recorded(*args, **kwargs):
+        out = real_race(*args, **kwargs)
+        races.append((args, kwargs, out))
+        return out
+
+    global_icp._coarse_race = recorded
+    try:
+        runs = [device_call(torch, lambda: global_icp.global_colored_icp(
+            src, tgt, device="cuda", **colors)) for _ in range(2)]
+    finally:
+        global_icp._coarse_race = real_race
+    (T_g, ginfo), wall, ev = runs[1]
+    args, kwargs, (_, card_scores) = races[1]
+    t0 = time.perf_counter()
+    _, cpu_scores = real_race(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+                              **kwargs)
+    cpu_s = time.perf_counter() - t0
+    card_scores, cpu_scores = card_scores.tolist(), cpu_scores.tolist()
+    n_coarse = args[0].shape[0], args[1].shape[0]
+    flops = 2 * 24 * n_coarse[0] * n_coarse[1] * 6 * (20 + 1)
+    err = pose_gap(np, T_g, gt)
+    worst = max(abs(a - b) for a, b in zip(card_scores, cpu_scores))
+    print(f"classical global_colored_icp (card): {wall:.3f} ms wall, {ev:.3f} ms CUDA events "
+          f"(first call {runs[0][1]:.3f} ms), coarse race {ginfo['coarse_time_s'] * 1e3:.3f} ms "
+          f"at {n_coarse} points (bound of a fused kernel {bound_ms(0.0, flops):.4f} ms); seed "
+          f"{ginfo['coarse_seed']}, coarse score {ginfo['coarse_best_score']:.6f}; RRE "
+          f"{err[0]:.4f} deg, RTE {err[1]:.5f} (tolerance {CLASSICAL_TOL['gicp']}); coarse "
+          f"scores card against CPU: largest gap {worst:.2e} over 24 seeds, best seed "
+          f"{int(np.argmin(card_scores))} / {int(np.argmin(cpu_scores))} (CPU race "
+          f"{cpu_s:.3f} s)", flush=True)
+    check(err[0] <= CLASSICAL_TOL["gicp"][0] and err[1] <= CLASSICAL_TOL["gicp"][1],
+          f"global_colored_icp against the known pose: {err}")
+    check(all(map(_scores_close, card_scores, cpu_scores))
+          and np.argmin(card_scores) == np.argmin(cpu_scores),
+          f"coarse scores card against CPU: {card_scores} / {cpu_scores}")
+
+    # best_global_registration(refine=True): host FGR/RANSAC seconds apart
+    host_s = [0.0]
+
+    def host_timed(fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host_s[0] += time.perf_counter() - t
+            return out
+        return call
+
+    real = pipeline.run_registration, pipeline.run_ransac_registration
+    pipeline.run_registration, pipeline.run_ransac_registration = map(host_timed, real)
+    try:
+        (T_b, info), wall, _ = device_call(torch, lambda: pipeline.best_global_registration(
+            src, tgt, icp_voxel=voxel, refine=True, device="cuda", **colors))
+    finally:
+        pipeline.run_registration, pipeline.run_ransac_registration = real
+    cands = info["candidates"]
+    errors = [c for c in cands if "error" in c]
+    check(not errors, f"race candidates with an error: {errors}")
+    check(T_b is not None, f"best_global_registration: no pose, {cands}")
+    err = pose_gap(np, T_b, gt)
+    print(f"classical best_global_registration(refine=True) (card): {wall / 1e3:.3f} s wall, "
+          f"of which FGR/RANSAC on the host {host_s[0]:.3f} s and the rest (ICP and scores on "
+          f"the card, the host's preparation) {wall / 1e3 - host_s[0]:.3f} s; winner "
+          f"{info['winner']}, ICP {info.get('icp')}; RRE {err[0]:.4f} deg, RTE {err[1]:.5f} "
+          f"(tolerance {CLASSICAL_TOL['race']}); candidates (method, voxel, dir, score, RRE "
+          f"deg) {[(c['method'], c['voxel'], c.get('dir'), c['score'], round(pose_gap(np, c['T'], gt)[0], 3) if 'T' in c else None) for c in cands]}",
+          flush=True)
+    check(err[0] <= CLASSICAL_TOL["race"][0] and err[1] <= CLASSICAL_TOL["race"][1],
+          f"best_global_registration against the known pose: {err}")
 
 
 def _opt_state(trainer) -> list:
@@ -1061,8 +1294,8 @@ def reg_train_parity_phase(torch, trainer, item) -> None:
 
 def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     """Stage-3 training at full width in bf16 on the register phase's pair
-    (see the module docstring, phase 8). Returns the K2p launches of the
-    exact-visibility steps."""
+    (see the module docstring, phase 9). Returns the K2p launches of the
+    exact-visibility steps and K2p's times and bounds on that path."""
     import numpy as np
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1246,6 +1479,23 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
           f"{sorted(v for vs in levels.values() for v in vs)}: "
           f"{[tuple(t.shape) for t, _, _ in gathers.values()]} rows, "
           f"{[int(i.numel()) for _, i, _ in gathers.values()]} slots", flush=True)
+    # K2p's bound on the path's own calls: idx read, each distinct table row
+    # read once, the output written; their device time alone in the profiler
+    # (at 2^16 rows a call the wrapper's host time exceeds the kernel's, so
+    # back-to-back calls would time the host)
+    exact_calls = []
+    for ptr, (table, idx, _) in gathers.items():
+        n, width = idx.numel(), table.shape[1]
+        distinct = int(torch.unique(idx).numel())
+        exact_calls.append({"table": levels[ptr], "rows": int(table.shape[0]), "slots": n,
+                            "distinct": distinct,
+                            "bound_ms": bound_ms(4 * n + 4 * width * distinct + 4 * n * width),
+                            "ms": device_ms(torch, lambda: gather_rows(table, idx),
+                                            "gather_rows_f32x4")})
+    for c in exact_calls:
+        print(f"K2p exact path {c['table']}: table_rows={c['rows']} slots={c['slots']} "
+              f"({c['distinct']} distinct rows): kernel {c['ms'] * 1e3:.2f} us device, bound "
+              f"{c['bound_ms'] * 1e3:.2f} us (bytes)", flush=True)
     del gathers
     batch = to_device(item, exact.device)
     shares = []
@@ -1262,15 +1512,23 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
                            int(valid.sum()), int(ctx.cam_origins.shape[0])))
     _, kernels, _ = profiled(torch, lambda: exact.train_iteration(train_ds[0]), 1,
                              "register train exact profile", "step")
-    k2p_prof = sum(e.count for e in kernels if e.key.startswith("gather_rows_f32x4"))
+    k2p_events = [e for e in kernels if e.key.startswith("gather_rows_f32x4")]
+    k2p_prof = sum(e.count for e in k2p_events)
     check(k2p_prof > 0, "the profiler saw no K2p launch in an exact step")
+    k2p_us = sum(e.self_device_time_total for e in k2p_events) / k2p_prof
+    mean = {k: statistics.mean(c[k] for c in exact_calls) for k in ("ms", "bound_ms")}
+    print(f"K2p exact path, mean of the {len(exact_calls)} first calls: kernel "
+          f"{mean['ms'] * 1e3:.2f} us device, bound {mean['bound_ms'] * 1e3:.2f} us "
+          f"({mean['bound_ms'] / mean['ms']:.2f} of the measured); in the profiled step "
+          f"{k2p_us:.2f} us a launch", flush=True)
     print(f"register train [--visibility exact]: {REG_EXACT_STEPS} steps in "
           f"{[round(s, 3) for s in exact_s]} s; K2p launches {k2p} (wrapper count), "
           f"{k2p_prof} in the profiled third step; labels (side, exact visible share, grid "
           f"visible share, disagreement, valid keypoints, cameras) "
           f"{[(s, round(a, 4), round(b, 4), round(c, 4), n, c_) for s, a, b, c, n, c_ in shares]}",
           flush=True)
-    return {"k2p_launches": k2p, "k2p_profiled": k2p_prof}
+    return {"k2p_launches": k2p, "k2p_profiled": k2p_prof,
+            "k2p_exact": dict(mean, profiled_us_a_launch=k2p_us, calls=exact_calls)}
 
 
 def train_pallas_phase(torch, out_dir: str) -> int:
@@ -1353,6 +1611,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         root, subject = timed("register", register_phase, torch, block_dir, out_dir)
         torch.cuda.empty_cache()
+        timed("classical", classical_phase, torch, root, subject, out_dir)
+        torch.cuda.empty_cache()
         exact = timed("register train", register_train_phase, torch, root, subject, out_dir)
         torch.cuda.empty_cache()
         k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
@@ -1376,7 +1636,9 @@ def main() -> int:
         dict(entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
                    default_launches["gather_rows"], k2p),
              launches_by_path={"train defaults": default_launches["gather_rows"],
-                               "register train exact visibility": exact["k2p_launches"]}),
+                               "register train exact visibility": exact["k2p_launches"]},
+             exact_path={k: exact["k2p_exact"][k] for k in ("ms", "bound_ms",
+                                                            "profiled_us_a_launch")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

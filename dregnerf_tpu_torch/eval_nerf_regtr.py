@@ -3,21 +3,24 @@ eval_nerf_regtr.py).
 
 Per test pair: the registration forward (timed, synchronised with the
 device), RRE/RTE against the ground truth, transformation_est.json,
-pose_est.pt and pose_gt.pt, the aligned and unaligned point clouds, and
-the keypoint and overlap cloud dumps; then metrics_test.json with the
-mean and median over pairs. The checkpoint is a JAX-layout RegTrainer
-checkpoint (`params::model/...`, `params::infonce_W`) written by either
-package; without one the random initialization is evaluated, with a
-warning.
+pose_est.pt and pose_gt.pt; with `--icp_refine` the colour-aware ICP
+polish of that pose (`*_icp` keys); the aligned and unaligned point
+clouds (under the polished pose); the classical baseline
+(`best_global_registration`: global colour ICP, FGR and RANSAC, refined
+by ICP with `--icp_refine`); and the keypoint and overlap cloud dumps.
+Then metrics_test.json and fgr_metrics_test.json with the mean and
+median over pairs. The ICP runs on the evaluator's device, FGR and
+RANSAC on the host. The checkpoint is a JAX-layout RegTrainer checkpoint
+(`params::model/...`, `params::infonce_W`) written by either package;
+without one the random initialization is evaluated, with a warning.
 
-Not ported here: the classical FGR baseline (no fgr_metrics_test.json;
-ROADMAP.md queue 1 item 4), `--icp_refine` (queue 1 item 4) and
-`--render_videos` (queue 1 item 5), which raise NotImplementedError.
+Not ported here: `--render_videos` (ROADMAP.md queue 1 item 5), which
+raises NotImplementedError.
 
 Usage:
   python -m dregnerf_tpu_torch.eval_nerf_regtr --dataset objaverse \
       --root_dir <root> [--scene <subject>] --expname <name> [--ckpt_path <ckpt>] \
-      [--no_bf16] [--device cpu]
+      [--icp_refine] [--no_bf16] [--device cpu]
 """
 from __future__ import annotations
 
@@ -62,9 +65,6 @@ class RegEvaluator:
         from dregnerf_tpu_torch.models.regtr import params_from_jax, random_jax_params
         from dregnerf_tpu_torch.runtime.reg_trainer import make_reg_model
 
-        if config.icp_refine:
-            raise NotImplementedError(
-                "--icp_refine is not ported yet (ROADMAP.md queue 1 item 4)")
         if config.render_videos or os.environ.get("DREG_RENDER_VIDEOS"):
             raise NotImplementedError(
                 "--render_videos is not ported yet (ROADMAP.md queue 1 item 5)")
@@ -99,10 +99,16 @@ class RegEvaluator:
     def evaluate(self) -> dict:
         from dregnerf_tpu_torch.geometry import se3
         from dregnerf_tpu_torch.io.ply import read_ply, write_ply
+        from dregnerf_tpu_torch.registration.icp import icp_refine
+        from dregnerf_tpu_torch.registration.pipeline import best_global_registration
 
-        print("[eval] the FGR baseline is not ported (ROADMAP.md queue 1 item 4): "
-              "no fgr_metrics_test.json")
-        per_scene = {}
+        def pose_error(est, gt):
+            rre, rte = se3.pose_error(torch.from_numpy(np.asarray(est, np.float32)),
+                                      torch.from_numpy(gt))
+            return float(rre), float(rte)
+
+        icp_voxel = 2.0 / self.config.grid_resolution * 2
+        per_scene, fgr_per_scene = {}, {}
         for i in range(len(self.dataset)):
             item = self.dataset[i]
             if self.device.type == "cuda":
@@ -114,10 +120,10 @@ class RegEvaluator:
             pred_np = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
                        for k, v in pred.items()}
             gt = np.asarray(item["pose"], np.float32)[:3, :4]
-            rre, rte = se3.pose_error(torch.from_numpy(pose), torch.from_numpy(gt))
+            rre, rte = pose_error(pose, gt)
             scene = item["scene"]
             per_scene[scene] = {
-                "R_error_deg": float(rre), "t_error": float(rte), "time": dt,
+                "R_error_deg": rre, "t_error": rte, "time": dt,
                 "blocks": [int(b) for b in item["block_list"]],
             }
 
@@ -128,31 +134,56 @@ class RegEvaluator:
             torch.save(torch.from_numpy(pose.copy()), os.path.join(scene_dir, "pose_est.pt"))
             torch.save(torch.from_numpy(gt.copy()), os.path.join(scene_dir, "pose_gt.pt"))
 
-            try:  # aligned / unaligned point clouds
+            try:  # the ICP polish, aligned / unaligned point clouds, the classical baseline
                 src_pts, src_cols = read_ply(item["src_ply_path"])
                 tgt_pts, tgt_cols = read_ply(item["tgt_ply_path"])
+                if self.config.icp_refine:
+                    t1 = time.perf_counter()
+                    refined, icp_rms, icp_cnt = icp_refine(
+                        src_pts, tgt_pts, pose, voxel_size=icp_voxel, src_colors=src_cols,
+                        tgt_colors=tgt_cols, device=self.device)
+                    if refined is not None:
+                        rre_i, rte_i = pose_error(refined, gt)
+                        per_scene[scene].update(
+                            R_error_icp_deg=rre_i, t_error_icp=rte_i, icp_rms=float(icp_rms),
+                            icp_inliers=int(icp_cnt), icp_time=time.perf_counter() - t1)
+                        pose = refined  # the aligned dumps use the best pose
                 aligned = src_pts @ pose[:3, :3].T + pose[:3, 3]
                 write_ply(os.path.join(scene_dir, "src_unaligned.ply"), src_pts, src_cols)
                 write_ply(os.path.join(scene_dir, "src_aligned.ply"), aligned, src_cols)
                 write_ply(os.path.join(scene_dir, "tgt.ply"), tgt_pts, tgt_cols)
+
+                fgr_pose, ginfo = best_global_registration(
+                    src_pts, tgt_pts, src_colors=src_cols, tgt_colors=tgt_cols,
+                    icp_voxel=icp_voxel, refine=self.config.icp_refine, device=self.device)
+                if fgr_pose is not None:
+                    frre, frte = pose_error(fgr_pose[:3, :4], gt)
+                    fgr_per_scene[scene] = {"R_error_deg": frre, "t_error": frte,
+                                            "time": ginfo.get("time_s"),
+                                            "winner": ginfo.get("winner")}
             except FileNotFoundError:
                 pass
             dump_keypoint_clouds(scene_dir, pred_np, pose, gt)
-            print(f"[eval] {scene}: RRE {float(rre):.3f} deg RTE {float(rte):.4f} ({dt:.2f}s)")
-        return self._agg_and_write(per_scene)
+            print(f"[eval] {scene}: RRE {rre:.3f} deg RTE {rte:.4f} ({dt:.2f}s)")
+        return self._agg_and_write(per_scene, fgr_per_scene)
 
-    def _agg_and_write(self, per_scene: dict) -> dict:
-        if per_scene:
-            r = [v["R_error_deg"] for v in per_scene.values()]
-            t = [v["t_error"] for v in per_scene.values()]
-            agg = {"R_mean": float(np.mean(r)), "R_med": float(np.median(r)),
-                   "t_mean": float(np.mean(t)), "t_med": float(np.median(t)),
-                   "num_pairs": len(per_scene)}
-        else:
-            agg = {}
-        metrics = {"per_scene": per_scene, "aggregate": agg}
+    def _agg_and_write(self, per_scene: dict, fgr_per_scene: dict) -> dict:
+        def agg(d):
+            if not d:
+                return {}
+            r = [v["R_error_deg"] for v in d.values()]
+            t = [v["t_error"] for v in d.values()]
+            return {"R_mean": float(np.mean(r)), "R_med": float(np.median(r)),
+                    "t_mean": float(np.mean(t)), "t_med": float(np.median(t)),
+                    "num_pairs": len(d)}
+
+        metrics = {"per_scene": per_scene, "aggregate": agg(per_scene)}
         with open(os.path.join(self.output_dir, "metrics_test.json"), "w") as f:
             json.dump(metrics, f, indent=2)
+        if fgr_per_scene:
+            with open(os.path.join(self.output_dir, "fgr_metrics_test.json"), "w") as f:
+                json.dump({"per_scene": fgr_per_scene, "aggregate": agg(fgr_per_scene)}, f,
+                          indent=2)
         print(f"[eval] aggregate: {metrics['aggregate']}")
         return metrics
 

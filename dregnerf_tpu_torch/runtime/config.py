@@ -42,7 +42,8 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--num_downsample", type=int, default=6)
     p.add_argument("--robust_loss", action="store_true")
     p.add_argument("--icp_refine", action="store_true",
-                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 4)")
+                   help="eval: polish each RegTr pose, and the classical baseline's winner, "
+                   "with the colour-aware multi-start ICP (registration/icp.py)")
     p.add_argument("--render_videos", action="store_true",
                    help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5)")
 

@@ -37,6 +37,17 @@ def test_no_jax_import_in_port_sources(path):
     assert not _imported_roots(path) & set(BANNED)
 
 
+@pytest.mark.parametrize("path", sorted(p for p in PORT.rglob("*") if p.suffix in
+                                         (".py", ".cu", ".cpp")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_never_name_the_jax_packages_native_build(path):
+    """The port builds its own copy of the FGR source (csrc/fgr.cpp) and
+    loads its own library: no source names the pre-built library or the
+    directory it lives in."""
+    text = path.read_text()
+    assert "libdregnative" not in text and "native/" not in text
+
+
 def test_every_port_module_imports_without_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         dregnerf_tpu_torch.__path__, "dregnerf_tpu_torch."))
@@ -82,10 +93,12 @@ def test_port_reads_its_own_split_jsons():
 
 
 def test_stage3_training_modules_are_in_the_port():
-    """The registration-training modules and the CLI twin exist in the
-    package, so the import checks above cover them."""
+    """The registration-training modules, the CLI twin and the classical
+    registration modules exist in the package, so the import checks above
+    cover them."""
     for rel in ("losses/registration.py", "losses/visibility.py", "runtime/reg_optim.py",
-                "runtime/reg_trainer.py", "train_nerf_regtr.py"):
+                "runtime/reg_trainer.py", "train_nerf_regtr.py", "registration/icp.py",
+                "registration/global_icp.py", "registration/fgr.py", "registration/pipeline.py"):
         assert (PORT / rel) in PORT_FILES, rel
 
 

@@ -2,6 +2,7 @@
 against the JAX package, on the CPU, on a two-block R = 16 fixture scene."""
 import json
 import os
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -160,9 +161,39 @@ def test_port_checkpoint_loads_into_jax(jax_checkpoint, tmp_path):
         tree["decoder"]["q_proj"]["kernel"])
 
 
+def _assert_written_as_jax_writes(eval_dir, tmp_path):
+    """metrics_test.json and fgr_metrics_test.json hold what JAX's
+    RegEvaluator._agg_and_write writes for the same per-scene entries: the
+    same keys, and aggregates from the same `agg`."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), "..", "eval_nerf_regtr.py")
+    spec = importlib.util.spec_from_file_location("jax_eval_nerf_regtr", path)
+    jax_eval = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_eval)
+
+    with open(eval_dir / "metrics_test.json") as f:
+        metrics = json.load(f)
+    with open(eval_dir / "fgr_metrics_test.json") as f:
+        fgr = json.load(f)
+    jax_dir = tmp_path / "jax_written"
+    jax_dir.mkdir()
+    jax_eval.RegEvaluator._agg_and_write(SimpleNamespace(output_dir=str(jax_dir)),
+                                   metrics["per_scene"], fgr["per_scene"])
+    for name, got in (("metrics_test.json", metrics), ("fgr_metrics_test.json", fgr)):
+        with open(jax_dir / name) as f:
+            assert json.load(f) == got, name
+    for entry in fgr["per_scene"].values():
+        assert set(entry) == {"R_error_deg", "t_error", "time", "winner"}
+        assert set(entry["winner"]) == {"method", "voxel", "dir", "score"}
+    assert fgr["aggregate"]["num_pairs"] == len(fgr["per_scene"]) == 1
+    return metrics, fgr
+
+
 def test_eval_cli_writes_metrics_and_matches_the_model(scenes, jax_checkpoint, tmp_path):
     """`python -m dregnerf_tpu_torch.eval_nerf_regtr --device cpu` on the
-    JAX-written checkpoint, at the default bf16: metrics_test.json and the
+    JAX-written checkpoint, at the default bf16: metrics_test.json, the
+    classical baseline's fgr_metrics_test.json in JAX's layout, and the
     per-scene files, with the pose of the port model called directly."""
     root, _, T = scenes
     path, tree, _ = jax_checkpoint
@@ -174,7 +205,9 @@ def test_eval_cli_writes_metrics_and_matches_the_model(scenes, jax_checkpoint, t
     with open(eval_dir / "metrics_test.json") as f:
         assert json.load(f) == json.loads(json.dumps(metrics))
     assert metrics["aggregate"]["num_pairs"] == 1
-    assert not (eval_dir / "fgr_metrics_test.json").exists()
+    assert not any(k.endswith("_icp") or k.startswith("icp_")
+                   for k in metrics["per_scene"]["fixture"])
+    _assert_written_as_jax_writes(eval_dir, tmp_path)
     scene_dir = eval_dir / "fixture"
     for name in ("transformation_est.json", "pose_est.pt", "pose_gt.pt", "src_unaligned.ply",
                  "src_aligned.ply", "tgt.ply", "src_xyz.ply", "tgt_kp_warped.ply",
@@ -198,7 +231,46 @@ def test_eval_cli_writes_metrics_and_matches_the_model(scenes, jax_checkpoint, t
     assert torch.load(scene_dir / "pose_est.pt").shape == (3, 4)
 
 
-@pytest.mark.parametrize("flag", ["--icp_refine", "--render_videos"])
+def test_eval_cli_icp_refine_polishes_the_pose(scenes, jax_checkpoint, tmp_path):
+    """`--icp_refine --device cpu`: the per-scene *_icp keys hold the
+    errors of icp_refine run on the model's pose (as JAX's evaluator runs
+    it), the aligned cloud takes the refined pose, and the baseline's
+    winner is refined too."""
+    from dregnerf_tpu_torch.geometry import se3
+    from dregnerf_tpu_torch.io.ply import read_ply
+    from dregnerf_tpu_torch.registration.icp import icp_refine
+
+    root, _, _ = scenes
+    path, _, _ = jax_checkpoint
+    argv = ["--root_dir", os.path.join(root, "single"), "--scene", "fixture",
+            "--out_dir", str(tmp_path), "--expname", "reg", "--ckpt_path", path,
+            "--position_embedding_dim", "64", "--device", "cpu", "--icp_refine"]
+    pev.main(argv)
+    eval_dir = tmp_path / "reg" / "eval"
+    metrics, _ = _assert_written_as_jax_writes(eval_dir, tmp_path)
+    entry = metrics["per_scene"]["fixture"]
+    assert {"R_error_icp_deg", "t_error_icp", "icp_rms", "icp_inliers", "icp_time"} <= set(entry)
+
+    scene_dir = eval_dir / "fixture"
+    with open(scene_dir / "transformation_est.json") as f:
+        written = json.load(f)
+    ds = prp.NeRFRegDataset(os.path.join(root, "single"), subject_id="fixture", split="test",
+                            seed=config_parser(argv).seed)
+    item = ds[0]
+    src, src_cols = read_ply(item["src_ply_path"])
+    tgt, tgt_cols = read_ply(item["tgt_ply_path"])
+    refined, rms, cnt = icp_refine(src, tgt, np.asarray(written["pose_est"], np.float32),
+                                   voxel_size=2.0 / 128 * 2, src_colors=src_cols,
+                                   tgt_colors=tgt_cols, device="cpu")
+    rre, rte = se3.pose_error(torch.from_numpy(refined), torch.from_numpy(
+        np.asarray(written["pose_gt"], np.float32)))
+    assert (entry["R_error_icp_deg"], entry["t_error_icp"]) == (float(rre), float(rte))
+    assert (entry["icp_rms"], entry["icp_inliers"]) == (rms, cnt)
+    aligned, _ = read_ply(str(scene_dir / "src_aligned.ply"))
+    np.testing.assert_allclose(aligned, src @ refined[:, :3].T + refined[:, 3], atol=1e-5)
+
+
+@pytest.mark.parametrize("flag", ["--render_videos"])
 def test_eval_refuses_unported_options(scenes, flag, tmp_path):
     root, _, _ = scenes
     with pytest.raises(NotImplementedError, match="ROADMAP"):
