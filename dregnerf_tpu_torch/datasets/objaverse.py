@@ -1,9 +1,11 @@
-"""Objaverse loader, single block (port of dregnerf_tpu/datasets/objaverse.py).
+"""Objaverse loader (port of dregnerf_tpu/datasets/objaverse.py).
 
 `<root>/<subject_id>/transforms.json` with `camera_angle_x` and frames of
 `{file_path, transform_matrix}`; RGBA PNGs at `file_path + ".png"`; every
-20th view is the test split; OpenGL cameras, synthetic RGBA. Multi-block
-splitting (KMeans) is still to be ported.
+20th view is the test split; OpenGL cameras, synthetic RGBA. With
+`multi_blocks` the views are split into camera blocks, each in its own
+world frame (`base.make_blocks`, which keeps the frames in
+`<root>/<subject_id>/world_frame_transforms.json`).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import List
 
 import numpy as np
 
-from dregnerf_tpu_torch.datasets.base import SceneData, split_indices
+from dregnerf_tpu_torch.datasets.base import SceneData, make_blocks, split_indices
 
 VAL_INTERVAL = 20
 OPENGL = True
@@ -54,8 +56,8 @@ def scene_from_arrays(images, camtoworlds, K, split: str,
 
 def load_blocks(root: str, subject_id: str, split: str, factor: int = 1,
                 multi_blocks: bool = False, num_blocks: int = 1) -> List[SceneData]:
-    if multi_blocks:
-        raise NotImplementedError(
-            "multi-block splitting is not ported yet (ROADMAP.md queue 1)")
     images, camtoworlds, K = _load_renderings(root, subject_id, factor)
+    if multi_blocks:
+        return make_blocks(os.path.join(root, subject_id), images, camtoworlds, K, split,
+                           num_blocks, VAL_INTERVAL, OPENGL, SYNTHETIC, subject_id)
     return [scene_from_arrays(images, camtoworlds, K, split, subject_id)]

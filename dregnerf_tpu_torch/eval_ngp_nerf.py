@@ -1,10 +1,12 @@
-"""Evaluate a trained NGP block and extract its voxel feature grid, stage 2
-(twin of the root eval_ngp_nerf.py, single-block).
+"""Evaluate trained NGP blocks and extract their voxel feature grids, stage
+2 (twin of the root eval_ngp_nerf.py).
 
-Renders every test view (PSNR, SSIM, LPIPS when its weights exist, and the
-random-feature `lpips_rand_alex` -> <model_dir>/eval/metrics.json), then
-writes voxel_grid.pt, voxel_mask.pt, voxel_point_cloud.ply and the
-density_voxel_* variants next to the block's checkpoint.
+For each block (every <out_dir>/<expname>/block_k of a multi-block run,
+else <out_dir>/<expname> itself) renders every test view (PSNR, SSIM,
+LPIPS when its weights exist, and the random-feature `lpips_rand_alex`
+-> <model_dir>/eval/metrics.json), then writes voxel_grid.pt,
+voxel_mask.pt, voxel_point_cloud.ply and the density_voxel_* variants
+next to the block's checkpoint.
 
 Usage:
   python -m dregnerf_tpu_torch.eval_ngp_nerf --dataset objaverse \
@@ -121,17 +123,31 @@ def _write_png(path: str, rgb: np.ndarray) -> None:
     imageio.imwrite(path, (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
 
 
+def eval_blocks(config, model_dirs, test_blocks) -> list:
+    """Evaluate and extract the block in each of `model_dirs` on the
+    matching block of `test_blocks`; returns [(metrics, extracted)]."""
+    results = []
+    for model_dir, scene in zip(model_dirs, test_blocks):
+        ev = Evaluator(config, model_dir, scene)
+        results.append((ev.evaluate(), ev.sample_points()))
+    return results
+
+
 def main(argv=None) -> None:
-    from dregnerf_tpu_torch.datasets.objaverse import load_blocks
+    from dregnerf_tpu_torch.datasets.base import load_scene_blocks
 
     config = config_parser(argv)
     exp_dir = os.path.join(config.out_dir, config.expname)
-    if os.path.isdir(exp_dir) and any(d.startswith("block_") for d in os.listdir(exp_dir)):
-        raise NotImplementedError("multi-block evaluation is not ported yet (ROADMAP.md queue 1)")
-    scene = load_blocks(config.root_dir, config.scene, "test", config.factor)[0]
-    ev = Evaluator(config, exp_dir, scene)
-    ev.evaluate()
-    ev.sample_points()
+    block_dirs = sorted(d for d in os.listdir(exp_dir)
+                        if d.startswith("block_")) if os.path.isdir(exp_dir) else []
+    if block_dirs:
+        test_blocks = load_scene_blocks(config.dataset, config.root_dir, config.scene, "test",
+                                        config.factor, True, len(block_dirs))
+        eval_blocks(config, [os.path.join(exp_dir, d) for d in block_dirs], test_blocks)
+    else:
+        scene = load_scene_blocks(config.dataset, config.root_dir, config.scene, "test",
+                                  config.factor)[0]
+        eval_blocks(config, [exp_dir], [scene])
 
 
 if __name__ == "__main__":

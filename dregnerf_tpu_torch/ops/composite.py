@@ -2,7 +2,9 @@
 
 Packed buffers (ray-major, depth-ordered): the exclusive per-ray product
 of (1 - alpha) is one global cumsum of log(1 - alpha), with 1 - alpha
-clipped to [1e-10, 1], re-based by each ray's maximum (its first sample);
+clipped to [1e-10, 1], re-based by each ray's maximum (its first sample)
+and padding by itself (the JAX package bases padding by the last ray,
+whose exp overflows between the rays of a quota buffer: a NaN gradient);
 composites are segment sums into num_rays + 1 segments (the last one
 collects padding). Row buffers: an axis-1 cumsum and row sums. The
 surface field max_k T_k alpha_k is a segment max over a packed buffer
@@ -71,7 +73,10 @@ def packed_transmittance(packed: PackedSamples, alphas: torch.Tensor) -> torch.T
         0, packed.ray_id, torch.where(packed.valid, excl, -torch.inf),
         reduce="amax", include_self=True)
     base = base_per_ray[packed.ray_id.clamp(max=packed.num_rays - 1)]
-    base = torch.where(torch.isfinite(base), base, 0.0)
+    # padding is based at itself (exp(0)): a pad slot between two rays, as
+    # the quota layout leaves them, would otherwise take the last ray's
+    # base, overflow exp and turn the gradient through the where into NaN
+    base = torch.where(packed.valid, base, excl)
     return torch.where(packed.valid, torch.exp(excl - base), 0.0)
 
 

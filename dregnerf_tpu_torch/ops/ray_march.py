@@ -2,9 +2,11 @@
 
 A dense [R, S] candidate lattice t = t_lo + (s + jitter) * dt per ray,
 masked by the occupancy grid at each step's contracted midpoint; then
-either each ray's first K survivors packed back to back into one buffer
-(`march_rays`, compaction "capped", the training marcher) or laid out as
-[R, K] rows (`march_rays_rows`, validation).
+either packed into one buffer of B samples (`march_rays`, the training
+marchers: "capped", each ray's first K survivors back to back; "compact",
+every survivor in ray-major order, cut at B; "quota", each ray's first
+B/R survivors in a slot range of its own) or laid out as [R, K] rows
+(`march_rays_rows`, validation).
 
 The occupancy test mirrors the JAX marcher's region read without its
 packed bitmask: steps go in groups, and a step's cell reads `grid.binary`
@@ -14,7 +16,7 @@ contraction at the trainer's step convention every cell lies in its
 region, so this is the plain binary read; under "un_bounded_sphere", or
 with steps coarser than the convention, far cells read occupied, as in
 JAX. A per-ray `t_max` cuts each ray's far end (the surface pass of voxel
-extraction). The "compact" and "quota" compactions are still to be ported.
+extraction).
 """
 from __future__ import annotations
 
@@ -162,23 +164,29 @@ def march_rays(origins, viewdirs, grid: OccupancyGrid, aabb, contraction: str,
                generator: torch.Generator | None = None,
                jitter: torch.Tensor | None = None, compaction: str = "capped",
                k_cap: int | None = None) -> PackedSamples:
-    """March rays into a packed buffer of `buffer_size` samples.
+    """March rays into a packed buffer of `buffer_size` samples, ray-major
+    and depth-ordered, as the compositor needs.
 
     compaction "capped": each ray's first `k_cap` survivors (default
     min(256, max_steps, buffer_size)), packed back to back at the exclusive
-    cumsum of the per-ray counts and cut at the buffer; ray-major and
-    depth-ordered, as the compositor needs. `t_max` [R] optionally cuts
-    each ray's far end.
+    cumsum of the per-ray counts and cut at the buffer. "compact": every
+    survivor, slot i holding the (i+1)-th of the flattened [R, S] mask,
+    cut at the buffer. "quota": ray r owns slots [rK, (r+1)K), K =
+    buffer_size // R, and fills them with its first K survivors; padding
+    after R·K. `t_max` [R] optionally cuts each ray's far end.
     """
-    if compaction != "capped":
-        raise NotImplementedError(
-            f"march compaction {compaction!r} is not ported yet (ROADMAP.md queue 1)")
+    if compaction not in ("capped", "compact", "quota"):
+        raise ValueError(f"unknown march compaction {compaction!r}")
     num_rays = origins.shape[0]
     dev = origins.device
     jitter = _jitter(num_rays, stratified, generator, jitter, dev)
     mask, t_lo = _candidate_mask(origins, viewdirs, grid, aabb, contraction,
                                  render_step_size, max_steps, near_plane,
                                  far_plane, t_max, jitter)
+    if compaction == "compact":
+        return _compact(mask, t_lo, jitter, render_step_size, buffer_size)
+    if compaction == "quota":
+        return _quota(mask, t_lo, jitter, render_step_size, buffer_size)
     k_cap = min(k_cap or 256, max_steps, buffer_size)
     steps_rk, valid_rk = _first_survivors(mask, k_cap)
     del mask
@@ -194,20 +202,59 @@ def march_rays(origins, viewdirs, grid: OccupancyGrid, aabb, contraction: str,
                      torch.ones(num_rays, dtype=torch.int64, device=dev))
     row = torch.cumsum(marks[:buffer_size], 0) - 1
     n_live = torch.clamp(total, max=buffer_size)
-    valid = ranks < n_live
     row_safe = row.clamp(0, num_rays - 1)
     k = (ranks - offsets[row_safe]).clamp(0, k_cap - 1)
-    step_idx = steps_rk[row_safe, k].to(torch.float32)
-    ts0 = torch.where(valid, t_lo[row_safe]
-                      + (step_idx + jitter[row_safe, 0]) * render_step_size, 0.0)
-    return PackedSamples(
-        ray_id=torch.where(valid, row_safe, num_rays),
-        t_start=ts0,
-        t_end=ts0 + render_step_size,
-        valid=valid,
-        num_samples=n_live,
-        num_rays=num_rays,
-    )
+    return _packed(row_safe, steps_rk[row_safe, k], ranks < n_live, t_lo, jitter,
+                   render_step_size, n_live, num_rays)
+
+
+def _packed(ray, step, valid, t_lo, jitter, render_step_size, num_samples, num_rays):
+    """PackedSamples of slots holding (ray, step) where `valid`; t_start
+    is t_lo + (step + jitter) * dt, the lattice's own arithmetic."""
+    ray_safe = ray.clamp(0, num_rays - 1)
+    ts0 = torch.where(valid, t_lo[ray_safe] + (step.to(torch.float32) + jitter[ray_safe, 0])
+                      * render_step_size, 0.0)
+    return PackedSamples(ray_id=torch.where(valid, ray_safe, num_rays), t_start=ts0,
+                         t_end=ts0 + render_step_size, valid=valid,
+                         num_samples=num_samples, num_rays=num_rays)
+
+
+def _compact(mask, t_lo, jitter, render_step_size, buffer_size) -> PackedSamples:
+    """Slot i holds the (i+1)-th survivor of the flattened mask: its index
+    is searchsorted(cumsum(flat mask), i + 1), int32, clamped to R·S − 1."""
+    num_rays, max_steps = mask.shape
+    csum = torch.cumsum(mask.reshape(-1).to(torch.int32), 0, dtype=torch.int32)
+    total = csum[-1]
+    ranks = torch.arange(1, buffer_size + 1, dtype=torch.int32, device=mask.device)
+    src = torch.searchsorted(csum, ranks, out_int32=True).clamp(max=csum.numel() - 1)
+    src = src.to(torch.int64)
+    return _packed(src // max_steps, src % max_steps, ranks <= total, t_lo, jitter,
+                   render_step_size, total.clamp(max=buffer_size).to(torch.int64), num_rays)
+
+
+def _quota(mask, t_lo, jitter, render_step_size, buffer_size) -> PackedSamples:
+    """Ray r's k-th slot of K = buffer_size // R holds its k-th survivor,
+    searchsorted(row cumsum, k) in its own row, clamped to S − 1; slots
+    past a ray's count and past R·K are padding."""
+    num_rays, max_steps = mask.shape
+    dev = mask.device
+    k_quota = max(buffer_size // num_rays, 1)
+    pad = buffer_size - num_rays * k_quota
+    if pad < 0:
+        raise ValueError(f"quota marching: {num_rays} rays exceed the buffer of {buffer_size}")
+    rows = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32)
+    counts = rows[:, -1]
+    ranks = torch.arange(1, k_quota + 1, dtype=torch.int32, device=dev)
+    src = torch.searchsorted(rows, ranks.expand(num_rays, k_quota).contiguous(),
+                             out_int32=True).clamp(max=max_steps - 1)
+    valid = ranks[None, :] <= counts[:, None]
+    ray = torch.arange(num_rays, device=dev)[:, None].expand(num_rays, k_quota)
+    num_samples = counts.clamp(max=k_quota).sum()
+    fill = torch.zeros(pad, dtype=torch.int64, device=dev)
+    return _packed(torch.cat([ray.reshape(-1), fill + num_rays]),
+                   torch.cat([src.reshape(-1).to(torch.int64), fill]),
+                   torch.cat([valid.reshape(-1), fill.bool()]), t_lo, jitter,
+                   render_step_size, num_samples.clamp(max=buffer_size), num_rays)
 
 
 def sample_positions(packed: PackedSamples, origins, viewdirs):

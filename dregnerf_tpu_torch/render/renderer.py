@@ -28,8 +28,9 @@ class RenderConfig:
     near_plane: float = 0.0
     far_plane: float = 1e10
     chunk_size: int = 8192
-    # "rows" (row-packed marcher + row compositor) or "capped" (per-ray
-    # capped lists packed into one buffer, the training marcher)
+    # "rows" (row-packed marcher + row compositor), or a packed buffer:
+    # "capped" (per-ray capped lists, the training default), "compact"
+    # (every survivor, cut at the buffer) or "quota" (buffer / rays slots a ray)
     march_compaction: str = "rows"
     # per-ray survivor cap for "capped"; None = min(256, max_steps)
     k_cap: int | None = None

@@ -3,9 +3,10 @@ dregnerf_tpu/runtime/config.py that the NGP trainer, its evaluator and the
 registration trainer and evaluator read: same names and defaults), plus
 `--device`.
 
-Every `--grad_accum` value trains, with or without `--rle_backward`. Of
-the training marchers only `--march_compaction capped` (the default) is
-ported; the others raise NotImplementedError when training starts.
+Every `--grad_accum` value trains, with or without `--rle_backward`, and
+every `--march_compaction`. `--dataset` takes the JAX package's choices;
+`dnerf` raises NotImplementedError (its loader needs the D-NeRF field), as
+does `--fleet`.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=1e-4,
                    help="registration learning rate (halved at 34000 k updates, k = 1..4)")
 
-    p.add_argument("--dataset", type=str, default="", choices=["objaverse"])
+    p.add_argument("--dataset", type=str, default="", choices=[
+        "mipnerf_360", "nerf_llff_data", "nerf_synthetic", "objaverse", "scannerf",
+        "Synthetic_NSVF", "Hypersim", "dtu", "BlendedMVS", "dnerf"])
     p.add_argument("--factor", type=int, default=4, choices=[1, 2, 4, 8])
     p.add_argument("--root_dir", type=str, default="")
     p.add_argument("--scene", type=str, default="")
@@ -31,6 +34,12 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--unbounded", action="store_true")
     p.add_argument("--cone_angle", type=float, default=0.0)
     p.add_argument("--multi_blocks", action="store_true")
+    p.add_argument("--fleet", action="store_true",
+                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5, "
+                   "parallel/)")
+    p.add_argument("--num_blocks", type=int, default=3)
+    p.add_argument("--min_num_blocks", type=int, default=2)
+    p.add_argument("--max_num_blocks", type=int, default=4)
     p.add_argument("--json_dir", type=str, default="",
                    help="directory of objaverse.json and obj_id_names.json "
                    "(default: the copies in dregnerf_tpu_torch/datasets/register)")

@@ -201,10 +201,6 @@ class NGPTrainer:
             march_compaction=cfg.march_compaction or "capped",
             k_cap=min(512, cfg.max_march_steps),
         )
-        if self.render_config.march_compaction != "capped":
-            raise NotImplementedError(
-                f"training marcher {cfg.march_compaction!r} is not ported yet "
-                "(ROADMAP.md queue 1)")
 
     def setup_optimizer(self) -> None:
         self.lr_at = multistep_lr(BASE_LR, self.config.max_iterations)

@@ -1,27 +1,57 @@
-"""Train one Instant-NGP block with the PyTorch port (twin of the root
-train_ngp_nerf.py, single-block).
+"""Train Instant-NGP blocks with the PyTorch port (twin of the root
+train_ngp_nerf.py).
+
+One block per scene; with --multi_blocks the scene is split into a random
+number of camera blocks in [min_num_blocks, max_num_blocks], each in its
+own world frame (persisted to <root>/<scene>/world_frame_transforms.json),
+and each block trains into <out_dir>/<expname>/block_k.
 
 Usage:
   python -m dregnerf_tpu_torch.train_ngp_nerf --dataset objaverse \
       --root_dir <root> --scene <subject> --expname <name> \
-      --grad_accum pallas --no-rle_backward [--device cpu]
+      [--multi_blocks] [--device cpu]
 """
 from __future__ import annotations
 
 import copy
 import os
+import random
 
 from dregnerf_tpu_torch.runtime.config import config_parser
 
 
-def train(config) -> None:
-    from dregnerf_tpu_torch.datasets.objaverse import load_blocks
+def train_blocks(config, train_blocks, test_blocks) -> list:
+    """Train block k of `train_blocks` (validated on block k of
+    `test_blocks`) into <out_dir>/<expname>/block_k; returns the trainers."""
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
+    trainers = []
+    for k, (train_scene, test_scene) in enumerate(zip(train_blocks, test_blocks)):
+        out_dir = os.path.join(config.out_dir, config.expname, f"block_{k}")
+        print(f"=== training block {k}: {train_scene.num_images} images ===", flush=True)
+        trainer = NGPTrainer(config, train_scene, test_scene, output_dir=out_dir)
+        trainer.train()
+        trainers.append(trainer)
+    return trainers
+
+
+def train(config) -> None:
+    from dregnerf_tpu_torch.datasets.base import load_scene_blocks
+    from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
+
+    if config.fleet:
+        raise NotImplementedError("--fleet is not ported yet (ROADMAP.md queue 1 item 5, "
+                                  "parallel/)")
     if config.multi_blocks:
-        raise NotImplementedError("--multi_blocks is not ported yet (ROADMAP.md queue 1)")
-    train_scene = load_blocks(config.root_dir, config.scene, "train", config.factor)[0]
-    test_scene = load_blocks(config.root_dir, config.scene, "test", config.factor)[0]
+        num_blocks = random.randint(config.min_num_blocks, config.max_num_blocks)
+        blocks = [load_scene_blocks(config.dataset, config.root_dir, config.scene, split,
+                                    config.factor, True, num_blocks)
+                  for split in ("train", "test")]
+        train_blocks(config, *blocks)
+        return
+    train_scene, test_scene = (load_scene_blocks(config.dataset, config.root_dir,
+                                                 config.scene, split, config.factor)[0]
+                               for split in ("train", "test"))
     NGPTrainer(config, train_scene, test_scene).train()
 
 

@@ -1,5 +1,5 @@
-"""The port stands alone: neither `dregnerf_tpu_torch` nor `chip_smoke.py`
-imports JAX, its libraries or the JAX package, every port module imports
+"""The port stands alone: neither `dregnerf_tpu_torch`, `chip_smoke.py` nor
+`probes/` imports JAX, its libraries or the JAX package, every port module imports
 in a process where JAX cannot be imported, and the port reads its own
 copies of the registration split JSONs. One `cuda` test holds the
 registration forward on the card against the CPU (this file imports no
@@ -19,7 +19,8 @@ import dregnerf_tpu_torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dregnerf_tpu_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "dregnerf_tpu")
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "probes").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set:
@@ -80,6 +81,50 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+LAZY = ("imageio", "h5py", "PIL")  # image and HDF5 decoding, absent on the card's machine
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_sklearn_and_lazy_decoders(path):
+    """No port file imports sklearn (the port clusters cameras with its own
+    k-means), and imageio, h5py and PIL are imported only inside the
+    functions that read files, never when a module is imported."""
+    tree = ast.parse(path.read_text(), str(path))
+    assert "sklearn" not in _imported_roots(path)
+    for node in tree.body:  # module-level statements only
+        for sub in ast.walk(node):
+            if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                break
+            if isinstance(sub, ast.Import):
+                names = [a.name.split(".")[0] for a in sub.names]
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                names = [sub.module.split(".")[0]]
+            else:
+                continue
+            assert not set(names) & set(LAZY), f"{path}:{sub.lineno} imports {names}"
+
+
+def test_loaders_import_without_decoders():
+    """Every loader of --dataset imports in a process where imageio, h5py,
+    PIL and sklearn cannot be imported, and splits a scene into blocks."""
+    code = (
+        "import sys\n"
+        "for name in ('imageio', 'h5py', 'PIL', 'sklearn'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from dregnerf_tpu_torch.datasets import base\n"
+        "for name in set(base.DATASET_MODULES.values()) - {'dnerf_synthetic'}:\n"
+        "    base.dataset_module(name)\n"
+        "print(base.cluster_cameras(np.stack([np.eye(4)[:3]] * 3 + [np.eye(4)[:3] + 5] * 3)"
+        ".astype(np.float32), 2).tolist())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) in ([0, 0, 0, 1, 1, 1],
+                                                              [1, 1, 1, 0, 0, 0])
 
 
 def test_port_reads_its_own_split_jsons():

@@ -1,4 +1,4 @@
-"""Port parity: the capped and row marchers (aabb and un_bounded_sphere,
+"""Port parity: the capped, compact, quota and row marchers (aabb and un_bounded_sphere,
 with and without a per-ray t_max), the compositors, the surface field and
 render_rays against the JAX package, with the jitter drawn by jax.random
 as the JAX marcher draws it and handed to the port. Integer fields exact,
@@ -67,6 +67,37 @@ def test_capped_march_matches_jax(scene, buffer_size, k_cap):
     tp, td = tmarch.sample_positions(got, _t(o), _t(d))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("compaction,buffer_size", [
+    ("compact", 1 << 14), ("compact", 1 << 10), ("quota", 1 << 13), ("quota", 1 << 10)])
+def test_compact_and_quota_march_match_jax(scene, compaction, buffer_size):
+    """The global-rank ("compact") and per-ray quota ("quota") packings
+    against JAX's march_rays with the same jitter: equal ray ids, validity
+    and counts, t_start within 1e-6. At 2^10 slots the compact buffer
+    overflows and most rays hold more survivors than the quota's 5 slots;
+    at 2^13 some rays still exceed the quota's 40."""
+    jgrid, tgrid, o, d, jitter = scene
+    want = jmarch.march_rays(jnp.asarray(o), jnp.asarray(d), jgrid, jnp.asarray(AABB),
+                             "aabb", STEP, buffer_size, STEPS, stratified=True,
+                             key=jax.random.PRNGKey(7), compaction=compaction)
+    got = tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, buffer_size,
+                            STEPS, jitter=_t(jitter), compaction=compaction)
+    per_ray = tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, 1 << 16, STEPS,
+                                jitter=_t(jitter), compaction="compact")
+    survivors = torch.bincount(per_ray.ray_id, minlength=RAYS + 1)[:RAYS]
+    if compaction == "compact":
+        assert (int(survivors.sum()) > buffer_size) == (buffer_size == 1 << 10)
+    else:
+        assert int((survivors > buffer_size // RAYS).sum()) > 0
+    assert int(got.num_samples) == int(want.num_samples) > 0
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.ray_id.numpy(), np.asarray(want.ray_id))
+    np.testing.assert_allclose(got.t_start.numpy(), np.asarray(want.t_start), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.t_end.numpy(), np.asarray(want.t_end), rtol=0, atol=1e-6)
+    jp, _ = jmarch.sample_positions(want, jnp.asarray(o), jnp.asarray(d))
+    tp, _ = tmarch.sample_positions(got, _t(o), _t(d))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
 
 
 def test_row_march_matches_jax(scene):
@@ -183,6 +214,51 @@ def test_packed_composite_matches_jax(scene):
         np.testing.assert_allclose(getattr(got, field).numpy(),
                                    np.asarray(getattr(want, field)), rtol=0, atol=2e-5,
                                    err_msg=field)
+
+
+def test_quota_composite_gradient_is_finite(scene):
+    """A quota buffer leaves padding between rays. JAX's packed
+    transmittance bases that padding by the last ray, exp overflows, and
+    the gradient through its where is NaN (a fault of the reference); the
+    port's forward equals JAX's and its gradient equals the gradient of
+    JAX's row compositor on the same samples (quota's samples are the row
+    marcher's), within 1e-5 of its max; zero on padding."""
+    jgrid, tgrid, o, d, jitter = scene
+    k = 40
+    aabb = jnp.asarray(AABB)
+    packed = jmarch.march_rays(jnp.asarray(o), jnp.asarray(d), jgrid, aabb, "aabb", STEP,
+                               RAYS * k, STEPS, compaction="quota")
+    rows = jmarch.march_rays_rows(jnp.asarray(o), jnp.asarray(d), jgrid, aabb, "aabb", STEP,
+                                  k, STEPS)
+    np.testing.assert_array_equal(np.asarray(packed.valid).reshape(RAYS, k),
+                                  np.asarray(rows.valid))
+    # a moderate optical depth, as in test_packed_composite_matches_jax: the
+    # buffer-wide cumsums of the two packages drift apart as it grows
+    sigmas = np.random.default_rng(3).uniform(0.0, 2.0, RAYS * k).astype(np.float32)
+    rgbs = np.random.default_rng(4).uniform(size=(RAYS * k, 3)).astype(np.float32)
+    bg = jnp.ones(3)
+
+    def jpacked(s):
+        return jcomp.composite(packed, jnp.asarray(rgbs), s, bg).rgb.sum()
+
+    def jrows(s):
+        return jcomp.composite_rows(rows, jnp.asarray(rgbs).reshape(RAYS, k, 3),
+                                    s.reshape(RAYS, k), bg).rgb.sum()
+
+    jgrad_packed = np.asarray(jax.grad(jpacked)(jnp.asarray(sigmas)))
+    assert np.isnan(jgrad_packed).any()  # the reference's fault
+    want = np.asarray(jax.grad(jrows)(jnp.asarray(sigmas))).reshape(-1)
+    tpacked = tmarch.march_rays(_t(o), _t(d), tgrid, _t(AABB), "aabb", STEP, RAYS * k, STEPS,
+                                compaction="quota")
+    ts = _t(sigmas).requires_grad_(True)
+    out = tcomp.composite(tpacked, _t(rgbs), ts, _t(np.ones(3, np.float32)))
+    np.testing.assert_allclose(out.rgb.detach().numpy(), np.asarray(
+        jcomp.composite(packed, jnp.asarray(rgbs), jnp.asarray(sigmas), bg).rgb),
+        rtol=0, atol=2e-5)
+    out.rgb.sum().backward()
+    got = ts.grad.numpy()
+    assert np.isfinite(got).all() and (got[~tpacked.valid.numpy()] == 0).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_row_composite_matches_jax(scene):

@@ -65,12 +65,14 @@ def _shrink(trainer, seed=0):
     trainer.setup_optimizer()
 
 
-def _one_step(grid_kw, bf16=False, monkeypatch=None):
+def _one_step(grid_kw, bf16=False, monkeypatch=None, compaction="capped",
+              buffer_size=1 << 12):
     """One training step of both packages on the same weights, grid and
     draws: a JAX reference built from the JAX package's public functions
     with the draws `_make_step_fn` makes at step 5, and the port's
-    `step_loss` + backward. With `monkeypatch`, the port's per-level
-    table-gradient scatters are recorded as (slot, g, table_rows)."""
+    `step_loss` + backward, both under the training marcher `compaction`.
+    With `monkeypatch`, the port's per-level table-gradient scatters are
+    recorded as (slot, g, table_rows)."""
     scene = tfix.make_scene_data("train", num_views=8, image_size=24)
     jcfg = jngp.NGPConfig(grid=JGrid(**GRID, **grid_kw),
                           compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
@@ -80,8 +82,8 @@ def _one_step(grid_kw, bf16=False, monkeypatch=None):
     jparams["table"] = jparams["table"] * 1000.0
     binary = np.random.default_rng(0).uniform(size=(16,) * 3) < 0.6
     jgrid = jocc.init_grid(16)._replace(binary=jnp.asarray(binary))
-    rkw = dict(render_step_size=2 * math.sqrt(3) / STEPS, buffer_size=1 << 12,
-               max_steps=STEPS, march_compaction="capped", k_cap=min(512, STEPS))
+    rkw = dict(render_step_size=2 * math.sqrt(3) / STEPS, buffer_size=buffer_size,
+               max_steps=STEPS, march_compaction=compaction, k_cap=min(512, STEPS))
     num_rays, aabb = 256, np.asarray(AABB, np.float32)
     images, c2ws, K = scene.images, scene.camtoworlds, scene.K
     H, W = scene.height, scene.width
@@ -145,6 +147,25 @@ def _one_step(grid_kw, bf16=False, monkeypatch=None):
 def test_one_step_matches_jax_reference():
     r = _one_step(dict(grad_accum="pallas"))
     assert r.tn_samples == r.n_samples > 0
+    np.testing.assert_allclose(r.tloss, r.loss, rtol=1e-4)
+    np.testing.assert_allclose(r.tpsnr, r.psnr, rtol=1e-4)
+    for i, (got, want) in enumerate(zip(r.tgrads, r.grads)):
+        scale = np.abs(want).max()
+        assert scale > 0
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=f"gradient {i}")
+
+
+@pytest.mark.parametrize("compaction", ["compact", "quota"])
+def test_one_step_under_the_other_marchers_matches_jax(compaction):
+    """An f32 step under the "compact" marcher (whose 2048-sample buffer
+    cuts this batch's 3438 survivors) and the "quota" marcher (16 slots a
+    ray), at the tolerance of the capped step."""
+    buffer_size = 1 << 11 if compaction == "compact" else 1 << 12
+    r = _one_step(dict(grad_accum="pallas"), compaction=compaction, buffer_size=buffer_size)
+    assert r.tn_samples == r.n_samples > 0
+    if compaction == "compact":
+        assert r.n_samples == buffer_size  # the buffer is full: the cut binds
     np.testing.assert_allclose(r.tloss, r.loss, rtol=1e-4)
     np.testing.assert_allclose(r.tpsnr, r.psnr, rtol=1e-4)
     for i, (got, want) in enumerate(zip(r.tgrads, r.grads)):
