@@ -89,7 +89,20 @@ Phases, in order; any failure exits non-zero:
  12. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
- 13. a JSON line of every kernel with its launches on its path, time, plain
+ 13. the other fields (`fields`): card against CPU, the full-width xor-hash
+     encoder on 2^16 points (corner rows equal; output and table gradient
+     within FIELDS_TOL) and one f32 step of --field vanilla and of --field
+     dnerf at FIELDS_SMALL; then --field vanilla and --field dnerf at full
+     width (8x256, bf16) at SHAPE_FLAGS, FIELD_STEPS steps each (dnerf on
+     the fixture with times i/35, validated on DNERF_VAL_VIEWS at their
+     times): finite losses, every parameter moved, ms a step, 8 profiled
+     steps, peak memory, MLP FLOPs a step against the f32 peak, train and
+     val PSNR, the checkpoint read back bit for bit; and the xor-hash NGP
+     at full width trained to HASH_STEPS, profiled, saved ("encoder":
+     "xor_hash"), evaluated and extracted through Evaluator, with its
+     surface rays/s; K1, K1p and K2p launch in none of it; a `fields`
+     JSON line;
+ 14. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -187,6 +200,24 @@ SHAPE_FLAGS = [
     "--max_march_steps", "1024", "--grid_resolution", "128", "--init_num_rays", "4096",
     "--max_num_rays", str(1 << 15), "--march_compaction", "capped",
 ]
+# the fields phase (stated before its first chip run). Card against CPU:
+# the full-width xor-hash encoder (16 levels x 2^19 rows x 2 features) on
+# 2^16 points in [-0.05, 1.05]^3: corner rows equal; the output within
+# FIELDS_TOL["hash_out"] of its max |value| (each point's 8-corner sum in
+# another order) and the table gradient within FIELDS_TOL["hash_grad"] of
+# its max (up to ~128 f32 adds a row at level 0, in another order); one
+# f32 step (TF32 off) of each MLP field at FIELDS_SMALL on the same draws:
+# equal sample counts, the loss within 1e-4 relative, every gradient leaf
+# within 1e-4 (vanilla) or 5e-4 (dnerf: the warped x enters posenc at up
+# to 2^(L-1)) of its max, the bounds the CPU tests hold the port to
+# against the JAX package (tests/test_torch_fields.py)
+FIELDS_TOL = {"hash_out": 1e-6, "hash_grad": 1e-5, "loss_rel": 1e-4,
+              "grad": {"vanilla": 1e-4, "dnerf": 5e-4}}
+FIELDS_SMALL = dict(net_depth=6, net_width=32, net_width_condition=16, posenc_xyz=4,
+                    posenc_dir=2, warp_depth=2, warp_width=16, posenc_time=2)
+FIELD_STEPS = 128  # full-width steps of --field vanilla and of --field dnerf
+HASH_STEPS = EXTRACT_STEPS  # the hash-grid NGP trains to this step, then is extracted
+DNERF_VAL_VIEWS = (10, 30)  # the dnerf phase's val views (times 10/35 and 30/35)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -596,7 +627,7 @@ def profiled(torch, fn, calls: int, label: str, unit: str):
     torch.profiler; prints its wall and device busy ms a call, the device's
     idle share, the device operations a call and the PROFILE_TOP kernels.
     Returns (device busy ms a call, the device events by device time, the
-    host events by self time)."""
+    host events by self time, wall ms a call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -626,24 +657,24 @@ def profiled(torch, fn, calls: int, label: str, unit: str):
         print(f"  {e.self_device_time_total / calls / 1e3:8.3f} ms/{unit} "
               f"{e.self_device_time_total / max(busy_us, 1e-9):6.1%} x{e.count // calls:<4d} "
               f"{e.key[:100]}", flush=True)
-    return busy_us / calls / 1e3, kernels, host
+    return busy_us / calls / 1e3, kernels, host, wall_us / calls / 1e3
 
 
-def profile_phase(torch, trainer, first_step: int) -> float:
+def profile_phase(torch, trainer, first_step: int) -> tuple[float, float]:
     """Where a training step's device time goes: PROFILE_STEPS steps after
     the occupancy update of step `first_step`, under torch.profiler; prints
     the device's busy share of the window and the kernels that take most
-    of it, and returns the device's busy ms a step."""
+    of it, and returns the device's busy ms and the wall ms a profiled step."""
     trainer.train_iteration(first_step)
     steps = range(first_step + 1, first_step + 1 + PROFILE_STEPS)
-    busy_ms, kernels, _ = profiled(
+    busy_ms, kernels, _, wall_ms = profiled(
         torch, lambda: [trainer.train_iteration(step) for step in steps], len(steps),
         f"profile: steps {steps.start}-{steps.stop - 1}", "step")
     for e in kernels:  # the port's own kernels, wherever they rank
         if any(name in e.key for name in PORT_KERNELS):
             print(f"  port kernel {e.key[:40]}: {e.self_device_time_total / len(steps) / 1e3:.4f} "
                   f"ms/step device, x{e.count // len(steps)} a step", flush=True)
-    return busy_ms
+    return busy_ms, wall_ms
 
 
 def _scenes():
@@ -734,7 +765,7 @@ def train_default_phase(torch, out_dir: str):
           f"{max(n_runs)} of max_runs {steady_rle[0][1]}, overflow fallback in {overflow} of "
           f"{len(n_runs)}; peak device memory {peak_gib:.2f} GiB", flush=True)
 
-    busy_ms = profile_phase(torch, trainer, TRAIN_STEPS)
+    busy_ms, _ = profile_phase(torch, trainer, TRAIN_STEPS)
     print(f"idle share of the unprofiled steady steps: 1 - {busy_ms:.3f} (busy, profiled) / "
           f"{steady_ms:.3f} (ms/step, steps 49-63) = {1 - busy_ms / steady_ms:.4f}", flush=True)
     t2 = time.perf_counter()
@@ -1264,7 +1295,7 @@ def reg_forward_stats(torch, model, batch, label: str, peak_flops: float) -> Non
           f"the measured; |R R^T - I| {orth:.2e}; last-layer pose {pose.round(5).tolist()}",
           flush=True)
     with torch.inference_mode():
-        _, _, host = profiled(torch, lambda: model(batch), 1, f"register [{label}] profile",
+        _, _, host, _ = profiled(torch, lambda: model(batch), 1, f"register [{label}] profile",
                               "forward")
     for e in host[:5]:  # the host operations of most self time
         print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}",
@@ -1507,7 +1538,7 @@ def classical_checks(torch, src, src_cols, tgt, tgt_cols, gt, regtr) -> None:
     runs = [device_call(torch, lambda: icp_refine(src, tgt, regtr, voxel_size=voxel,
                                                   device="cuda", **colors)) for _ in range(2)]
     (refined, rms, cnt), wall, ev = runs[1]
-    busy, _, _ = profiled(torch, lambda: icp_refine(src, tgt, regtr, voxel_size=voxel,
+    busy, _, _, _ = profiled(torch, lambda: icp_refine(src, tgt, regtr, voxel_size=voxel,
                                                     device="cuda", **colors),
                           1, "classical icp_refine profile", "call")
     # the bound of a fused distance-and-argmin kernel: 2 (3 + 3) operations
@@ -1793,7 +1824,7 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     print(f"register train FLOPs: {flops / 1e12:.4f} TFLOP a step in convolutions and matmuls "
           f"(forward and backward), bound {bound:.3f} ms at {BF16_FLOPS / 1e12:.0f} TFLOP/s = "
           f"{bound / mean_ms:.4f} of the measured {mean_ms:.3f} ms", flush=True)
-    busy_ms, _, host = profiled(torch, lambda: trainer.train_iteration(train_ds.get_raw(0)), 1,
+    busy_ms, _, host, _ = profiled(torch, lambda: trainer.train_iteration(train_ds.get_raw(0)), 1,
                                 "register train profile", "step")
     print(f"register train idle share of the unprofiled steps: 1 - {busy_ms:.3f} (busy, "
           f"profiled) / {mean_ms:.3f} = {1 - busy_ms / mean_ms:.4f}", flush=True)
@@ -1934,7 +1965,7 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
                                 exact.grid_resolution)[valid]
             shares.append((side, e.mean().item(), g.mean().item(), (e != g).float().mean().item(),
                            int(valid.sum()), int(ctx.cam_origins.shape[0])))
-    _, kernels, _ = profiled(torch, lambda: exact.train_iteration(train_ds[0]), 1,
+    _, kernels, _, _ = profiled(torch, lambda: exact.train_iteration(train_ds[0]), 1,
                              "register train exact profile", "step")
     k2p_events = [e for e in kernels if e.key.startswith("gather_rows_f32x4")]
     k2p_prof = sum(e.count for e in k2p_events)
@@ -1994,6 +2025,344 @@ def train_pallas_phase(torch, out_dir: str) -> int:
     return launches
 
 
+def fields_parity(torch, dev) -> dict:
+    """Phase 13a: the hash encoder at full width and one f32 step of each
+    MLP field at FIELDS_SMALL, on the card against the CPU (FIELDS_TOL)."""
+    from dregnerf_tpu_torch.datasets.fixtures import make_scene_data
+    from dregnerf_tpu_torch.models import fields, mlp_nerf
+    from dregnerf_tpu_torch.ops import hash_encoding, occupancy
+    from dregnerf_tpu_torch.render.renderer import RenderConfig
+    from dregnerf_tpu_torch.runtime.checkpoint import leaves_with_paths
+    from dregnerf_tpu_torch.runtime.ngp_trainer import draw_step_inputs, step_loss
+
+    hcfg = hash_encoding.HashGridConfig()
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(1 << 16, 3, generator=g) * 1.1 - 0.05
+    table = torch.rand(hcfg.n_levels * hcfg.table_size, hcfg.n_features, generator=g) * 2 - 1
+    cot = torch.randn(1 << 16, hcfg.out_dim, generator=g)
+    res = {}
+    for d in ("cpu", dev):
+        rows, _ = hash_encoding.hash_corners(x.to(d), hcfg)
+        t = table.to(d).detach().requires_grad_(True)
+        hash_encoding.hash_encode(t, x.to(d), hcfg).backward(cot.to(d))
+        y = hash_encoding.hash_encode(t.detach(), x.to(d), hcfg)
+        res[str(d)] = (rows.cpu(), y.cpu(), t.grad.cpu())
+    (r0, y0, g0), (r1, y1, g1) = res["cpu"], res[str(dev)]
+    out = {"hash_encode": {
+        "points": 1 << 16, "rows_equal": bool(torch.equal(r0, r1)),
+        "out_err": ((y1 - y0).abs().max() / y0.abs().max()).item(),
+        "grad_err": ((g1 - g0).abs().max() / g0.abs().max()).item()}}
+    h = out["hash_encode"]
+    check(h["rows_equal"], "hash corner rows differ between the card and the CPU")
+    check(h["out_err"] <= FIELDS_TOL["hash_out"], f"hash_encode out err {h['out_err']}")
+    check(h["grad_err"] <= FIELDS_TOL["hash_grad"], f"hash_encode grad err {h['grad_err']}")
+
+    steps = 64
+    scene = make_scene_data("train", num_views=8, image_size=32)
+    times = torch.arange(scene.num_images, dtype=torch.float32) / (scene.num_images - 1)
+    rcfg = RenderConfig(render_step_size=2 * math.sqrt(3) / steps, buffer_size=1 << 13,
+                        max_steps=steps, march_compaction="capped", k_cap=steps)
+    binary = torch.rand(16, 16, 16, generator=g) < 0.6
+    draws_cpu = draw_step_inputs(g, 256, scene.num_images, scene.height, scene.width, "cpu")
+    for name in ("vanilla", "dnerf"):
+        field = fields.get_field(name)
+        mcfg = mlp_nerf.VanillaNeRFConfig(**FIELDS_SMALL, warp=name == "dnerf")
+        weights = mlp_nerf.params_to_numpy(
+            field.init(mcfg, torch.Generator().manual_seed(0), "cpu"))
+        r = {}
+        for d in ("cpu", dev):
+            params = field.params_from_jax(weights, d)
+            leaves = leaves_with_paths(params)
+            for p in leaves.values():
+                p.requires_grad_(True)
+            loss, m = step_loss(
+                params, mcfg, rcfg, occupancy.OccupancyGrid(torch.zeros(16**3, device=d),
+                                                              binary.to(d)),
+                torch.tensor([-1.0, -1, -1, 1, 1, 1], device=d),
+                torch.as_tensor(scene.images, device=d),
+                torch.as_tensor(scene.camtoworlds, device=d), torch.as_tensor(scene.K, device=d),
+                type(draws_cpu)(*(t.to(d) for t in draws_cpu)), True, True, field=field,
+                timestamps=times.to(d) if name == "dnerf" else None)
+            loss.backward()
+            r[str(d)] = (loss.item(), int(m["n_samples"]),
+                         {k: p.grad.cpu() for k, p in leaves.items()})
+        (l0, n0, g0), (l1, n1, g1) = r["cpu"], r[str(dev)]
+        worst = max(((g1[k] - g0[k]).abs().max() / g0[k].abs().max()).item() for k in g0)
+        out[f"{name}_step"] = {"loss_cpu": l0, "loss_cuda": l1, "n_samples": n0,
+                               "worst_grad_err": worst}
+        check(n0 == n1, f"{name} step: n_samples cpu {n0} vs cuda {n1}")
+        check(math.isclose(l0, l1, rel_tol=FIELDS_TOL["loss_rel"]),
+              f"{name} step: loss cpu {l0} vs cuda {l1}")
+        check(worst <= FIELDS_TOL["grad"][name], f"{name} step: gradient err {worst}")
+    print(f"fields parity: hash_encode rows equal, out err {h['out_err']:.3e}, table grad err "
+          f"{h['grad_err']:.3e} of max; f32 steps card vs CPU: "
+          + ", ".join(f"{n} loss {out[f'{n}_step']['loss_cuda']:.6f} (cpu "
+                      f"{out[f'{n}_step']['loss_cpu']:.6f}), worst grad err "
+                      f"{out[f'{n}_step']['worst_grad_err']:.3e}" for n in ("vanilla", "dnerf")),
+          flush=True)
+    return out
+
+
+def mlp_macs(c) -> int:
+    """Multiply-adds of one sample's forward through a VanillaNeRFConfig
+    field (the warp included when the config has one)."""
+    macs, in_dim = 0, c.xyz_dim
+    for i in range(c.net_depth):
+        macs += in_dim * c.net_width
+        in_dim = c.net_width + (c.xyz_dim if c.skip_after(i) else 0)
+    macs += c.net_width * (1 + c.net_width)  # sigma, bottleneck
+    in_dim = c.net_width + c.dir_dim
+    for _ in range(c.net_depth_condition):
+        macs += in_dim * c.net_width_condition
+        in_dim = c.net_width_condition
+    macs += in_dim * 3
+    if c.warp:
+        in_dim = c.xyz_dim + c.time_dim
+        for _ in range(c.warp_depth):
+            macs += in_dim * c.warp_width
+            in_dim = c.warp_width
+        macs += in_dim * 3
+    return macs
+
+
+def _kernel_launches():
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
+    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+
+    return {"scatter_add": scatter_add.launches, "scatter_add_bf16": scatter_add_bf16.launches,
+            "gather_rows": gather_rows.launches}
+
+
+def _reset_kernel_launches():
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
+    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+
+    scatter_add.launches = scatter_add_bf16.launches = gather_rows.launches = 0
+
+
+def train_timed(torch, trainer, steps: range) -> dict:
+    """Train `steps` with a CUDA event after each; returns the losses,
+    train PSNRs and peak memory, and the steady ms a step and samples a
+    step over the last 32 steps without an occupancy update (those next
+    to the profiled ones that follow)."""
+    from dregnerf_tpu_torch.runtime.ngp_trainer import OCC_UPDATE_INTERVAL
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    metrics = []
+    for i, step in enumerate(steps):
+        metrics.append(trainer.train_iteration(step))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(len(steps))]
+    quiet = [i for i in range(max(len(steps) - 32, 0), len(steps))
+             if steps[i] % OCC_UPDATE_INTERVAL]
+    losses = [float(m["loss"]) for m in metrics]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss in {losses}")
+    return {"wall_s": wall, "losses": losses,
+            "psnr": [float(m["psnr"]) for m in metrics],
+            "steady_ms": sum(step_ms[i] for i in quiet) / len(quiet),
+            "samples": sum(int(metrics[i]["n_samples"]) for i in quiet) / len(quiet),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "bucket": int(metrics[-1]["num_rays"])}
+
+
+def _check_checkpoint_round_trip(torch, trainer, step: int) -> str:
+    """Save the trainer's checkpoint at `step`, read it back through
+    load_field_from_checkpoint: every parameter bit for bit. Returns its path."""
+    from dregnerf_tpu_torch.runtime.checkpoint import leaves_with_paths
+    from dregnerf_tpu_torch.runtime.ngp_trainer import load_field_from_checkpoint
+
+    trainer.save_checkpoint(step)
+    path = os.path.join(trainer.output_dir, "model", "model.ckpt")
+    params, _, meta, model_cfg, _ = load_field_from_checkpoint(path, trainer.device)
+    want, got = leaves_with_paths(trainer.params), leaves_with_paths(params)
+    check(sorted(got) == sorted(want) and all(torch.equal(got[k], want[k].detach())
+                                              for k in want),
+          f"{path}: the parameters read back differ")
+    check(model_cfg == trainer.model_config, f"{path}: config {model_cfg}")
+    check(meta["step"] == step, f"{path}: step {meta['step']}")
+    return path
+
+
+def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
+    """Phases 13b and 13c: --field `name` at full width (8x256, bf16) at
+    SHAPE_FLAGS on the 36-view 128 px fixture (dnerf: every view at time
+    i/35, validated on views DNERF_VAL_VIEWS at their times)."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets import dnerf_synthetic, objaverse
+    from dregnerf_tpu_torch.datasets.fixtures import render_views
+    from dregnerf_tpu_torch.runtime import ngp_trainer
+    from dregnerf_tpu_torch.runtime.checkpoint import leaves_with_paths
+    from dregnerf_tpu_torch.runtime.config import config_parser
+
+    if name == "dnerf":
+        images, c2w = render_views(36, 128)
+        c2w, K = c2w.astype(np.float32)[:, :3, :4], objaverse.intrinsics(128, 128, 0.9)
+        times = np.arange(36, dtype=np.float32) / 35
+        view = list(DNERF_VAL_VIEWS)
+        scene = dnerf_synthetic.scene_from_arrays(images, c2w, K, times, "train")
+        val_scene = dnerf_synthetic.scene_from_arrays(images[view], c2w[view], K, times[view],
+                                                      "test")
+    else:
+        scene, val_scene = _scenes()
+    cfg = config_parser(SHAPE_FLAGS + ["--expname", f"chip_smoke_{name}", "--out_dir", out_dir,
+                                       "--field", name])
+    trainer = ngp_trainer.NGPTrainer(cfg, scene, val_scene)
+    mcfg = trainer.model_config
+    check(trainer.device.type == "cuda" and type(mcfg).__name__ == "VanillaNeRFConfig"
+          and mcfg.warp == (name == "dnerf") and mcfg.compute_dtype == torch.bfloat16
+          and mcfg.net_width == 256, f"--field {name}: {mcfg} on {trainer.device}")
+    before = {k: p.detach().clone() for k, p in leaves_with_paths(trainer.params).items()}
+    _reset_kernel_launches()
+    run = train_timed(torch, trainer, range(FIELD_STEPS))
+    busy_ms, profiled_ms = profile_phase(torch, trainer, FIELD_STEPS)
+    profiled_bucket = trainer.num_rays
+    step = FIELD_STEPS + 1 + PROFILE_STEPS
+    flops = 2 * mlp_macs(mcfg) * 3 * run["samples"]  # forward 2 MACs, backward twice that
+    # validate() through a spy on its render call: the time it renders at
+    real_render, seen_times = ngp_trainer.render_image_chunked, []
+
+    def render_spy(*args, **kwargs):
+        seen_times.append(kwargs.get("time"))
+        return real_render(*args, **kwargs)
+
+    ngp_trainer.render_image_chunked = render_spy
+    try:
+        t0 = time.perf_counter()
+        val_psnr = trainer.validate(step)
+        val_s = time.perf_counter() - t0
+    finally:
+        ngp_trainer.render_image_chunked = real_render
+    want_time = float(val_scene.timestamps[0]) if name == "dnerf" else None
+    check(seen_times == [want_time], f"validate rendered at {seen_times}, expected {want_time}")
+    check(math.isfinite(val_psnr), f"val psnr {val_psnr}")
+    moved = {k: not torch.equal(p.detach(), before[k])
+             for k, p in leaves_with_paths(trainer.params).items()}
+    check(all(moved.values()), f"parameters that did not move: "
+          f"{[k for k, v in moved.items() if not v]}")
+    launches = _kernel_launches()
+    check(not any(launches.values()), f"--field {name} launched port kernels: {launches}")
+    _check_checkpoint_round_trip(torch, trainer, step)
+    out = {"steps": FIELD_STEPS, "wall_s": run["wall_s"], "steady_ms": run["steady_ms"],
+           "busy_ms": busy_ms, "profiled_wall_ms": profiled_ms,
+           "idle_share": 1 - busy_ms / profiled_ms,
+           "samples_a_step": run["samples"], "bucket": run["bucket"],
+           "profiled_bucket": profiled_bucket,
+           "peak_gib": run["peak_gib"], "mlp_tflop_a_step": flops / 1e12,
+           "f32_peak_share": flops / (run["steady_ms"] / 1e3) / F32_FLOPS,
+           "train_psnr_first": run["psnr"][0], "train_psnr_last": run["psnr"][-1],
+           "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+           "val_psnr": val_psnr, "val_s": val_s, "val_time": want_time,
+           "checkpoint_bit_equal": True}
+    if name == "dnerf":
+        out["warp_moved"] = all(v for k, v in moved.items() if k.startswith("warp"))
+    print(f"--field {name}: {FIELD_STEPS} steps in {run['wall_s']:.3f} s wall; steady "
+          f"{run['steady_ms']:.2f} ms/step device ({run['samples']:.0f} samples a step, bucket "
+          f"{run['bucket']}); profiled steps {busy_ms:.3f} ms/step busy of {profiled_ms:.3f} "
+          f"wall, idle share {out['idle_share']:.4f}, bucket {profiled_bucket}; peak "
+          f"{run['peak_gib']:.2f} GiB; MLP {out['mlp_tflop_a_step']:.4f} TFLOP a step = {out['f32_peak_share']:.4f} of the f32 "
+          f"peak; train psnr {run['psnr'][0]:.3f} -> {run['psnr'][-1]:.3f}; val psnr "
+          f"{val_psnr:.3f} at time {want_time} ({val_s:.3f} s); checkpoint read back bit for "
+          f"bit; port kernel launches {launches}", flush=True)
+    return out
+
+
+def hash_ngp_phase(torch, out_dir: str) -> dict:
+    """Phase 13d: the xor-hash NGP at full width (HashGridConfig(): 16
+    levels x 2^19 rows x 2 features, bf16 MLPs) swapped into the trainer at
+    SHAPE_FLAGS, trained to HASH_STEPS, profiled, saved, and evaluated and
+    extracted through Evaluator; K1, K1p and K2p must never launch."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.eval_ngp_nerf import Evaluator
+    from dregnerf_tpu_torch.extract import sample_grid as sg
+    from dregnerf_tpu_torch.models import ngp
+    from dregnerf_tpu_torch.ops.hash_encoding import HashGridConfig
+    from dregnerf_tpu_torch.runtime.checkpoint import load_checkpoint
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
+
+    scene, val_scene = _scenes()
+    cfg = config_parser(SHAPE_FLAGS + ["--expname", "chip_smoke_hash", "--out_dir", out_dir])
+    trainer = NGPTrainer(cfg, scene, val_scene)
+    grid = HashGridConfig()
+    trainer.model_config = ngp.NGPConfig(grid=grid, compute_dtype=torch.bfloat16)
+    trainer.init_params(torch.Generator(device=trainer.device).manual_seed(cfg.seed))
+    trainer.setup_optimizer()
+    rows = tuple(trainer.params["table"].shape)
+    check(rows == (grid.n_levels * grid.table_size, grid.n_features), f"hash table {rows}")
+    _reset_kernel_launches()
+    run = train_timed(torch, trainer, range(HASH_STEPS))
+    first, last = sum(run["losses"][:8]) / 8, sum(run["losses"][-8:]) / 8
+    check(last < first, f"hash NGP loss did not fall: first 8 {first}, last 8 {last}")
+    busy_ms, profiled_ms = profile_phase(torch, trainer, HASH_STEPS)
+    profiled_bucket = trainer.num_rays
+    step = HASH_STEPS + 1 + PROFILE_STEPS
+    val_psnr = trainer.validate(step)
+    path = _check_checkpoint_round_trip(torch, trainer, step)
+    _, meta = load_checkpoint(path)
+    check(meta["model_config"]["encoder"] == "xor_hash", f"meta {meta['model_config']}")
+
+    t0 = time.perf_counter()
+    ev = Evaluator(cfg, trainer.output_dir, val_scene)
+    check(ev.model_config.grid == grid, f"evaluator {ev.model_config}")
+    result = ev.evaluate()
+    check(math.isfinite(result["psnr"]), f"eval psnr {result['psnr']}")
+    t1 = time.perf_counter()
+    extracted = ev.sample_points()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    points, cams = extracted["points"], np.asarray(ev.meta["camera_poses"], np.float32)
+    aabb = torch.as_tensor(ev.meta["aabb"], dtype=torch.float32, device=ev.device)
+    sg.compute_surface_mask(ev.params, ev.model_config, ev.grid, aabb,
+                            sg.extraction_render_config(ev.meta), points, cams,
+                            chunk=min(cfg.test_chunk_size, 8192), return_scores=True)
+    t3 = time.perf_counter()
+    n_surface = int((extracted["surface_mask"] & extracted["density_mask"]).sum())
+    check(n_surface > 0, "the hash block has no surface voxel")
+    launches = _kernel_launches()
+    check(not any(launches.values()), f"the hash NGP launched port kernels: {launches}")
+    rays = len(points) * len(cams)
+    out = {"steps": HASH_STEPS, "wall_s": run["wall_s"], "steady_ms": run["steady_ms"],
+           "busy_ms": busy_ms, "profiled_wall_ms": profiled_ms,
+           "idle_share": 1 - busy_ms / profiled_ms,
+           "samples_a_step": run["samples"], "bucket": run["bucket"],
+           "profiled_bucket": profiled_bucket,
+           "peak_gib": run["peak_gib"], "loss_first8": first, "loss_last8": last,
+           "train_psnr_last": run["psnr"][-1], "val_psnr": val_psnr,
+           "encoder": meta["model_config"]["encoder"], "eval_psnr": result["psnr"],
+           "eval_s": t1 - t0, "sample_points_s": t2 - t1, "occupied_voxels": len(points),
+           "surface_voxels": n_surface, "density_voxels": int(extracted["density_mask"].sum()),
+           "surface_rays_per_s": rays / (t3 - t2), "launches": launches}
+    print(f"hash NGP: {HASH_STEPS} steps in {run['wall_s']:.3f} s wall; steady "
+          f"{run['steady_ms']:.2f} ms/step device ({run['samples']:.0f} samples a step, bucket "
+          f"{run['bucket']}); profiled steps {busy_ms:.3f} ms/step busy of {profiled_ms:.3f} "
+          f"wall, idle share {out['idle_share']:.4f}, bucket {profiled_bucket}; "
+          f"peak {run['peak_gib']:.2f} GiB; loss first 8 {first:.5f} last 8 {last:.5f}; val "
+          f"psnr {val_psnr:.3f}; eval psnr {result['psnr']:.3f} ({t1 - t0:.3f} s); "
+          f"sample_points {t2 - t1:.3f} s: {n_surface} surface voxels of {len(points)} "
+          f"occupied; surface pass {rays} rays in {t3 - t2:.3f} s "
+          f"({out['surface_rays_per_s']:.1f} rays/s); port kernel launches {launches}",
+          flush=True)
+    return out
+
+
+def fields_phase(torch, dev, out_dir: str) -> dict:
+    """Phase 13: the vanilla and D-NeRF fields and the xor-hash NGP."""
+    out = fields_parity(torch, dev)
+    for name in ("vanilla", "dnerf"):
+        out[name] = mlp_field_phase(torch, out_dir, name)
+        torch.cuda.empty_cache()
+    out["hash_ngp"] = hash_ngp_phase(torch, out_dir)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2043,6 +2412,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
     timed("K1p device", k1p_device_phase, torch, k1p)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fields_") as out_dir:
+        fields = timed("fields", fields_phase, torch, dev, out_dir)
+    print(json.dumps({"fields": fields}), flush=True)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     def entry(name, source, replaces, launches, k):

@@ -4,7 +4,9 @@ and writer (the reference's schema: {block_id: 4x4}, so registration
 ground truth crosses between packages), and multi-block splitting: the
 cameras clustered into blocks by k-means (sklearn's labels, from
 `datasets/kmeans.py`), a random world frame per block, saved once and
-read on every later split, and the `--dataset` dispatch."""
+read on every later split, and the `--dataset` dispatch. Spectral
+clustering (`cluster_cameras(method="Spectral")`) is sklearn's, from
+`datasets/spectral.py`."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from dregnerf_tpu_torch.datasets.kmeans import kmeans_labels
+from dregnerf_tpu_torch.datasets.spectral import spectral_labels
 
 
 @dataclasses.dataclass
@@ -96,13 +99,13 @@ def save_world_frame_transforms(data_dir: str, transforms: Dict[int, np.ndarray]
 
 def cluster_cameras(camtoworlds: np.ndarray, num_clusters: int,
                     method: str = "KMeans") -> np.ndarray:
-    """Block label of each camera: its centre clustered by k-means, the
-    labels sklearn's KMeans(n_init=10, random_state=0) gives."""
+    """Block label of each camera: its centre clustered as sklearn's
+    KMeans(n_init=10, random_state=0) or SpectralClustering(random_state=0,
+    assign_labels="discretize") labels it."""
     if method == "KMeans":
         return kmeans_labels(camtoworlds[:, :3, 3], num_clusters)
     if method == "Spectral":
-        raise NotImplementedError(
-            "spectral camera clustering is not ported yet (ROADMAP.md queue 1 item 4)")
+        return spectral_labels(camtoworlds[:, :3, 3], num_clusters)
     raise ValueError(f"unknown clustering method: {method}")
 
 
@@ -175,10 +178,6 @@ def dataset_module(dataset: str):
     except KeyError:
         raise ValueError(
             f"unknown dataset: {dataset!r} (known: {sorted(DATASET_MODULES)})") from None
-    if name == "dnerf_synthetic":
-        raise NotImplementedError(
-            "the dnerf loader needs the D-NeRF field, which is not ported yet "
-            "(ROADMAP.md queue 1 item 4, models/mlp_nerf.py and models/fields.py)")
     return importlib.import_module(f"dregnerf_tpu_torch.datasets.{name}")
 
 

@@ -26,7 +26,9 @@ from dregnerf_tpu_torch.runtime.config import config_parser
 
 class Evaluator:
     """One block: `model_dir` holds `model/model.ckpt` (or `model.ckpt`)
-    written by either package. Runs on `device` (default cuda)."""
+    written by either package, of an NGP field (packed or xor-hash grid:
+    the JAX evaluator renders and extracts NGP fields only). Runs on
+    `device` (default cuda)."""
 
     def __init__(self, config, model_dir: str, scene_data, device=None):
         from dregnerf_tpu_torch.device import resolve_device
@@ -42,6 +44,10 @@ class Evaluator:
             ckpt = os.path.join(model_dir, "model.ckpt")
         (self.params, self.grid, self.meta, self.model_config,
          self.render_config) = load_field_from_checkpoint(ckpt, self.device)
+        field = self.meta.get("field", "ngp")
+        if field != "ngp":
+            raise ValueError(f"{ckpt}: the evaluator renders and extracts NGP fields only, "
+                             f"not field {field!r}")
         self.generator = torch.Generator().manual_seed(config.seed)  # voxel jitter
 
     def evaluate(self) -> dict:

@@ -120,6 +120,9 @@ def load_visibility_context(path: str, max_cameras: int = 128, device=None
     from dregnerf_tpu_torch.runtime.ngp_trainer import load_field_from_checkpoint
 
     params, grid, meta, model_cfg, rcfg = load_field_from_checkpoint(path, device)
+    if meta.get("field", "ngp") != "ngp":
+        raise ValueError("exact visibility marches NGP checkpoints only, as in the JAX "
+                         f"package (got field={meta.get('field')!r})")
     cams = np.asarray(meta["camera_poses"], np.float32)
     if len(cams) > max_cameras:
         print(f"[visibility] WARNING: {path} has {len(cams)} cameras; exact visibility uses "

@@ -1,8 +1,10 @@
 """Instant-NGP radiance field (port of dregnerf_tpu/models/ngp.py).
 
-Packed-grid encoding + a 1-hidden 64-wide density MLP -> (log-density,
-15-dim geo feature); SH degree-4 view encoding + a 2-hidden 64-wide color
-MLP with sigmoid output; density activation trunc_exp(x - 1); out-of-box
+A grid encoding, chosen by the type of `NGPConfig.grid` as in the JAX
+package (the packed grid of ops/packed_grid.py, the default, or the
+xor-hash grid of ops/hash_encoding.py), + a 1-hidden 64-wide density MLP
+-> (log-density, 15-dim geo feature); SH degree-4 view encoding + a
+2-hidden 64-wide color MLP with sigmoid output; density activation trunc_exp(x - 1); out-of-box
 selector zeroing density.
 
 Parameters are a plain dict of tensors in the JAX package's layout
@@ -27,6 +29,7 @@ import torch
 from dregnerf_tpu_torch.device import resolve_device
 from dregnerf_tpu_torch.ops.activation import density_activation
 from dregnerf_tpu_torch.ops.contraction import contract_aabb, contract_unisphere
+from dregnerf_tpu_torch.ops.hash_encoding import HashGridConfig, hash_encode, init_hash_table
 from dregnerf_tpu_torch.ops.packed_grid import (
     PackedGridConfig,
     init_packed_grid,
@@ -40,7 +43,7 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class NGPConfig:
-    grid: PackedGridConfig = PackedGridConfig()
+    grid: PackedGridConfig | HashGridConfig = PackedGridConfig()
     geo_feat_dim: int = 15
     hidden_dim: int = 64
     sh_degree: int = 4
@@ -57,6 +60,10 @@ class NGPConfig:
         return (self.sh_dim if self.use_viewdirs else 0) + self.geo_feat_dim
 
 
+def _packed(config: NGPConfig) -> bool:
+    return isinstance(config.grid, PackedGridConfig)
+
+
 def _dense_init(shape, generator, device) -> torch.Tensor:
     """He-uniform, matching tcnn's default layer init scale."""
     bound = (6.0 / shape[0]) ** 0.5
@@ -69,8 +76,9 @@ def init_ngp(config: NGPConfig = NGPConfig(), generator: torch.Generator | None 
     """Random weights on `device` (cuda unless given; raises without CUDA)."""
     device = resolve_device(device)
     h = config.hidden_dim
+    init_table = init_packed_grid if _packed(config) else init_hash_table
     return {
-        "table": init_packed_grid(config.grid, generator, device),
+        "table": init_table(config.grid, generator, device),
         "density_mlp": [
             _dense_init((config.grid.out_dim, h), generator, device),
             _dense_init((h, 1 + config.geo_feat_dim), generator, device),
@@ -116,6 +124,8 @@ def params_to_numpy(params: Params) -> Params:
 
 
 def _encode(params: Params, u: torch.Tensor, config: NGPConfig) -> torch.Tensor:
+    if not _packed(config):
+        return hash_encode(params["table"], u, config.grid)
     packed = params.get("packed_table")
     if packed is None:
         packed = pack_table(params["table"], config.grid)
@@ -123,9 +133,10 @@ def _encode(params: Params, u: torch.Tensor, config: NGPConfig) -> torch.Tensor:
 
 
 def prepare_params(params: Params, config: NGPConfig) -> Params:
-    """Precompute the packed table once (inference loops). Training packs
-    inside the step so gradients flow to the vertex table."""
-    if "packed_table" not in params:
+    """Precompute the packed table once (inference loops; a hash grid is
+    not packed). Training packs inside the step so gradients flow to the
+    vertex table."""
+    if _packed(config) and "packed_table" not in params:
         return dict(params, packed_table=pack_table(params["table"], config.grid))
     return params
 
@@ -176,7 +187,7 @@ def forward(params: Params, positions: torch.Tensor, viewdirs: torch.Tensor,
 def config_to_meta(config: NGPConfig) -> dict:
     """JSON-able description, the schema of the JAX package's checkpoints."""
     return {
-        "encoder": "packed",
+        "encoder": "packed" if _packed(config) else "xor_hash",
         "grid": dataclasses.asdict(config.grid),
         "geo_feat_dim": config.geo_feat_dim,
         "hidden_dim": config.hidden_dim,
@@ -188,12 +199,9 @@ def config_to_meta(config: NGPConfig) -> dict:
 
 
 def config_from_meta(meta: dict) -> NGPConfig:
-    encoder = meta.get("encoder", "packed")
-    if encoder != "packed":
-        raise NotImplementedError(
-            f"encoder {encoder!r} is not ported yet (ROADMAP.md queue 1)")
+    grid_cls = PackedGridConfig if meta.get("encoder", "packed") == "packed" else HashGridConfig
     return NGPConfig(
-        grid=PackedGridConfig(**meta.get("grid", {})),
+        grid=grid_cls(**meta.get("grid", {})),
         geo_feat_dim=meta.get("geo_feat_dim", 15),
         hidden_dim=meta.get("hidden_dim", 64),
         sh_degree=meta.get("sh_degree", 4),

@@ -49,6 +49,8 @@ def render_rays(
     generator: torch.Generator | None = None,
     jitter: torch.Tensor | None = None,
     device: torch.device | str | None = None,
+    field=ngp,
+    times: torch.Tensor | None = None,
 ) -> tuple[RenderOutput, dict]:
     """Render one ray bucket; returns (RenderOutput, aux) with aux
     `n_samples` (live samples, the ray-bucket feedback) and `ray_counts`
@@ -56,7 +58,9 @@ def render_rays(
 
     Runs on `device` (default cuda; see dregnerf_tpu_torch.device), which
     must be where the inputs lie. Stratified jitter is an explicit [R, 1]
-    tensor, or drawn from `generator`.
+    tensor, or drawn from `generator`. `field` is a family of
+    models/fields.py (or the ngp module); `times` [R], a time per ray for a
+    time-conditioned field (D-NeRF), reaches each of the ray's samples.
     """
     dev = resolve_device(device)
     if origins.device.type != dev.type:
@@ -71,7 +75,11 @@ def render_rays(
             config.near_plane, config.far_plane, stratified=stratified,
             generator=generator, jitter=jitter)
         positions, dirs = row_sample_positions(rows, origins, viewdirs)
-        rgbs, sigmas = ngp.forward(params, positions, dirs, aabb, model_config)
+        if times is not None:
+            t = times[:, None, None].expand(*rows.valid.shape, 1)
+            rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config, t=t)
+        else:
+            rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config)
         sigmas = torch.where(rows.valid, sigmas.reshape(rows.valid.shape), 0.0)
         out = composite_rows(rows, rgbs, sigmas, background=background)
         return out, {"n_samples": rows.num_samples,
@@ -84,7 +92,12 @@ def render_rays(
         generator=generator, jitter=jitter, compaction=config.march_compaction,
         k_cap=config.k_cap)
     positions, dirs = sample_positions(packed, origins, viewdirs)
-    rgbs, sigmas = ngp.forward(params, positions, dirs, aabb, model_config)
+    if times is not None:
+        # a padding slot's ray id is num_rays: it takes the last ray's time
+        t = times[torch.clamp(packed.ray_id, max=num_rays - 1)][:, None]
+        rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config, t=t)
+    else:
+        rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config)
     sigmas = torch.where(packed.valid, sigmas.reshape(-1), 0.0)
     out = composite(packed, rgbs, sigmas, background=background)
     ray_counts = torch.zeros(num_rays + 1, dtype=torch.int64, device=origins.device)
@@ -104,11 +117,14 @@ def render_image_chunked(
     background: torch.Tensor,
     eval_buffer_size: int | None = None,
     device: torch.device | str | None = None,
+    field=ngp,
+    time: float | None = None,
 ):
     """Render [N, 3] rays (a flattened image) in chunks of `chunk_size`
     rays, padded to whole chunks as in the reference; returns (rgb [N, 3],
-    opacity [N], depth [N])."""
-    params = ngp.prepare_params(params, model_config)  # pack once, not per chunk
+    opacity [N], depth [N]). `time` renders the whole image at one time
+    (D-NeRF)."""
+    params = field.prepare_params(params, model_config)  # pack once, not per chunk
     n = origins.shape[0]
     cs = config.chunk_size
     buf = eval_buffer_size or config.buffer_size
@@ -121,11 +137,12 @@ def render_image_chunked(
     dev = origins.device
     o = torch.cat([origins, torch.zeros(pad, 3, dtype=origins.dtype, device=dev)])
     d = torch.cat([viewdirs, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
+    times = None if time is None else torch.full((cs,), float(time), device=dev)
     rgbs, opacities, depths = [], [], []
     for i in range(n_chunks):
         out, _ = render_rays(params, model_config, grid, o[i * cs:(i + 1) * cs],
                              d[i * cs:(i + 1) * cs], aabb, chunk_cfg, background,
-                             device=device)
+                             device=device, field=field, times=times)
         rgbs.append(out.rgb)
         opacities.append(out.opacity)
         depths.append(out.depth)

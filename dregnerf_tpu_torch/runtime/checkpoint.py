@@ -25,9 +25,9 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dicts/lists of arrays -> {prefix + "a/b/0": ndarray}."""
-    out: Dict[str, np.ndarray] = {}
+def leaves_with_paths(tree: Any) -> Dict[str, Any]:
+    """Nested dicts/lists -> {"a/b/0": leaf}, dicts by sorted key."""
+    out: Dict[str, Any] = {}
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -37,10 +37,15 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
             for i, v in enumerate(node):
                 walk(v, path + [str(i)])
         else:
-            out[prefix + "/".join(path)] = _to_numpy(node)
+            out["/".join(path)] = node
 
     walk(tree, [])
     return out
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts/lists of arrays -> {prefix + "a/b/0": ndarray}."""
+    return {prefix + k: _to_numpy(v) for k, v in leaves_with_paths(tree).items()}
 
 
 def tree_under(flat: Dict[str, np.ndarray], prefix: str) -> dict:
@@ -54,6 +59,20 @@ def tree_under(flat: Dict[str, np.ndarray], prefix: str) -> dict:
                 node = node.setdefault(d, {})
             node[leaf] = value
     return tree
+
+
+def unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Any:
+    """`tree_under`, with every dict whose keys are 0..n-1 as a list: the
+    nested layout of the JAX package's parameter pytrees."""
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree_under(flat, prefix))
 
 
 def save_checkpoint(path: str, state: Dict[str, Any], meta: Dict[str, Any]) -> None:

@@ -4,9 +4,8 @@ registration trainer and evaluator read: same names and defaults), plus
 `--device`.
 
 Every `--grad_accum` value trains, with or without `--rle_backward`, and
-every `--march_compaction`. `--dataset` takes the JAX package's choices;
-`dnerf` raises NotImplementedError (its loader needs the D-NeRF field), as
-does `--fleet`.
+every `--march_compaction`, `--field` and `--dataset`. `--fleet` raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -70,6 +69,8 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--n_validation", type=int, default=2500)
     p.add_argument("--n_checkpoint", type=int, default=5000)
 
+    p.add_argument("--field", type=str, default="ngp", choices=["ngp", "vanilla", "dnerf"],
+                   help="radiance-field family (models/fields.py)")
     p.add_argument("--out_dir", type=str, default="out")
     p.add_argument("--sample_budget", type=int, default=1 << 18)
     p.add_argument("--max_march_steps", type=int, default=1024)

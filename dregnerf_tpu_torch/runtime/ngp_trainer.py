@@ -1,4 +1,10 @@
-"""NGP per-block training runtime (port of dregnerf_tpu/runtime/ngp_trainer.py).
+"""Per-block radiance-field training runtime (port of
+dregnerf_tpu/runtime/ngp_trainer.py).
+
+The field is `--field`'s family (models/fields.py): Instant-NGP (the
+default; `NGPConfig` with the packed grid), or the 8x256 vanilla MLP, with
+the D-NeRF warp under "dnerf" (bf16 operands unless --no_bf16). A scene
+with `timestamps` (the dnerf loader) gives each ray its image's time.
 
 One step: sample pixels, blend synthetic RGBA over a random background,
 generate rays, march + render with stratified jitter, Huber loss over the
@@ -32,6 +38,8 @@ from dregnerf_tpu_torch.datasets.base import SceneData
 from dregnerf_tpu_torch.device import resolve_device
 from dregnerf_tpu_torch.geometry.cameras import image_rays, rays_from_pixels
 from dregnerf_tpu_torch.models import ngp
+from dregnerf_tpu_torch.models.fields import get_field
+from dregnerf_tpu_torch.models.mlp_nerf import VanillaNeRFConfig
 from dregnerf_tpu_torch.ops import occupancy
 from dregnerf_tpu_torch.ops.contraction import contract_inv
 from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig
@@ -40,7 +48,12 @@ from dregnerf_tpu_torch.render.renderer import (
     render_image_chunked,
     render_rays,
 )
-from dregnerf_tpu_torch.runtime.checkpoint import CheckpointManager, load_checkpoint
+from dregnerf_tpu_torch.runtime.checkpoint import (
+    CheckpointManager,
+    leaves_with_paths,
+    load_checkpoint,
+    unflatten,
+)
 
 OCC_UPDATE_INTERVAL = 16
 OCC_WARMUP_STEPS = 256
@@ -93,11 +106,13 @@ def draw_step_inputs(generator: torch.Generator, num_rays: int, num_images: int,
         jitter=torch.rand(num_rays, 1, generator=generator, device=device))
 
 
-def step_loss(params, model_config: ngp.NGPConfig, render_config: RenderConfig,
+def step_loss(params, model_config, render_config: RenderConfig,
               grid: occupancy.OccupancyGrid, aabb: torch.Tensor, images: torch.Tensor,
               c2ws: torch.Tensor, K: torch.Tensor, draws: StepDraws,
-              synthetic: bool, opengl: bool):
-    """(loss, metrics) of one step: Huber over alive rays / (n_alive * 3)."""
+              synthetic: bool, opengl: bool, field=ngp,
+              timestamps: torch.Tensor | None = None):
+    """(loss, metrics) of one step: Huber over alive rays / (n_alive * 3).
+    With `timestamps` [N_img], each ray renders at its image's time."""
     rgba = images[draws.img_id, draws.y, draws.x].to(torch.float32) / 255.0
     if synthetic:
         pixels = rgba[:, :3] * rgba[:, 3:4] + draws.bg * (1.0 - rgba[:, 3:4])
@@ -106,7 +121,9 @@ def step_loss(params, model_config: ngp.NGPConfig, render_config: RenderConfig,
     rays = rays_from_pixels(draws.x, draws.y, K, c2ws[draws.img_id], opengl)
     out, aux = render_rays(params, model_config, grid, rays.origins, rays.viewdirs,
                            aabb, render_config, background=draws.bg,
-                           stratified=True, jitter=draws.jitter, device=aabb.device)
+                           stratified=True, jitter=draws.jitter, device=aabb.device,
+                           field=field,
+                           times=None if timestamps is None else timestamps[draws.img_id])
     alive = (aux["ray_counts"] > 0).to(torch.float32)
     n_alive = alive.sum()
     denom = torch.clamp(n_alive, min=1.0) * 3.0
@@ -158,6 +175,9 @@ class NGPTrainer:
         self.images = torch.as_tensor(scene.images, device=dev)  # uint8, resident
         self.c2ws = torch.as_tensor(scene.camtoworlds, dtype=torch.float32, device=dev)
         self.K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+        ts = getattr(scene, "timestamps", None)
+        self.timestamps = None if ts is None else torch.as_tensor(
+            ts, dtype=torch.float32, device=dev)
         self.num_rays = int(config.init_num_rays)
         self.step = 0
         self._pending_n_samples = None
@@ -176,19 +196,21 @@ class NGPTrainer:
 
     def build_networks(self) -> None:
         cfg = self.config
-        rle_step_u = 0.0
-        if cfg.rle_backward and not cfg.unbounded:
-            extent = float(np.min(np.asarray(cfg.aabb, np.float32)[3:]
-                                  - np.asarray(cfg.aabb, np.float32)[:3]))
-            rle_step_u = self.render_step_size / max(extent, 1e-9)
-        self.model_config = ngp.NGPConfig(
-            grid=PackedGridConfig(grad_accum=cfg.grad_accum, rle_step_u=rle_step_u),
-            unbounded=cfg.unbounded,
-            compute_dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
-        init_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.params = ngp.init_ngp(self.model_config, init_gen, self.device)
-        for p in ngp.parameters(self.params):
-            p.requires_grad_(True)
+        self.field = get_field(cfg.field)
+        dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+        if cfg.field == "ngp":
+            rle_step_u = 0.0
+            if cfg.rle_backward and not cfg.unbounded:
+                extent = float(np.min(np.asarray(cfg.aabb, np.float32)[3:]
+                                      - np.asarray(cfg.aabb, np.float32)[:3]))
+                rle_step_u = self.render_step_size / max(extent, 1e-9)
+            self.model_config = ngp.NGPConfig(
+                grid=PackedGridConfig(grad_accum=cfg.grad_accum, rle_step_u=rle_step_u),
+                unbounded=cfg.unbounded, compute_dtype=dtype)
+        else:
+            self.model_config = VanillaNeRFConfig(warp=cfg.field == "dnerf",
+                                                  compute_dtype=dtype)
+        self.init_params(torch.Generator(device=self.device).manual_seed(cfg.seed))
         self.grid = occupancy.init_grid(cfg.grid_resolution, self.device)
         self.render_config = RenderConfig(
             contraction=self.contraction,
@@ -202,9 +224,15 @@ class NGPTrainer:
             k_cap=min(512, cfg.max_march_steps),
         )
 
+    def init_params(self, generator: torch.Generator) -> None:
+        """Random weights of `model_config`'s field, as trainable leaves."""
+        self.params = self.field.init(self.model_config, generator, self.device)
+        for p in leaves_with_paths(self.params).values():
+            p.requires_grad_(True)
+
     def setup_optimizer(self) -> None:
         self.lr_at = multistep_lr(BASE_LR, self.config.max_iterations)
-        self.optimizer = torch.optim.Adam(ngp.parameters(self.params), lr=BASE_LR,
+        self.optimizer = torch.optim.Adam(leaves_with_paths(self.params).values(), lr=BASE_LR,
                                           betas=(0.9, 0.999), eps=1e-15)
 
     # ------------------------------------------------------------- train step
@@ -218,12 +246,13 @@ class NGPTrainer:
     @torch.no_grad()
     def update_occupancy(self, step: int) -> None:
         cfg = self.config
-        params = ngp.prepare_params(self.params, self.model_config)
+        params = self.field.prepare_params(self.params, self.model_config)
 
+        # the density at no time: a D-NeRF field is not warped here
         def occ_fn(u: torch.Tensor) -> torch.Tensor:
             return torch.cat([
-                ngp.query_density(params, contract_inv(c, self.aabb, self.contraction),
-                                  self.aabb, self.model_config).reshape(-1)
+                self.field.query_density(params, contract_inv(c, self.aabb, self.contraction),
+                                         self.aabb, self.model_config).reshape(-1)
                 * self.render_step_size
                 for c in u.split(OCC_EVAL_CHUNK)])
 
@@ -243,7 +272,7 @@ class NGPTrainer:
         loss, metrics = step_loss(
             self.params, self.model_config, self.render_config, self.grid,
             self.aabb, self.images, self.c2ws, self.K, draws,
-            self.scene.synthetic, self.scene.opengl)
+            self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
         loss.backward()
         self.apply_gradients(step)
         metrics["loss"] = loss.detach()
@@ -291,9 +320,11 @@ class NGPTrainer:
             f.write(line + "\n")
 
     def validate(self, step: int) -> float:
-        """PSNR of view 0 of the validation scene, rendered with the rows
-        marcher at test_chunk_size * min(256, max_steps) samples a chunk."""
+        """PSNR of view 0 of the validation scene (at its time, when the
+        scene has timestamps), rendered with the rows marcher at
+        test_chunk_size * min(256, max_steps) samples a chunk."""
         scene = self.val_scene or self.scene
+        ts = getattr(scene, "timestamps", None)
         dev = self.device
         rays = image_rays(torch.as_tensor(scene.K, dtype=torch.float32, device=dev),
                           torch.as_tensor(scene.camtoworlds[0], dtype=torch.float32,
@@ -306,7 +337,7 @@ class NGPTrainer:
             eval_cfg, torch.ones(3, device=dev),
             eval_buffer_size=self.config.test_chunk_size
             * min(256, self.render_config.max_steps),
-            device=dev)
+            device=dev, field=self.field, time=None if ts is None else float(ts[0]))
         rgb = rgb.reshape(scene.height, scene.width, 3).cpu().numpy()
         gt = np.asarray(scene.images[0], np.float32) / 255.0
         if scene.synthetic:
@@ -331,44 +362,53 @@ class NGPTrainer:
             "num_rays": int(self.num_rays),
             "camera_poses": np.asarray(self.scene.camtoworlds).tolist(),
             "block_id": self.scene.block_id,
-            "field": "ngp",
-            "model_config": ngp.config_to_meta(self.model_config),
+            "field": cfg.field,
+            "model_config": (ngp.config_to_meta(self.model_config) if cfg.field == "ngp"
+                             else {"warp": self.model_config.warp, "bf16": bool(cfg.bf16)}),
         }
 
     def _optimizer_tree(self) -> dict:
-        """Adam moments per parameter (in `ngp.parameters` order) and the
-        update count; the port's own checkpoint keys."""
-        state = [self.optimizer.state.get(p, {}) for p in ngp.parameters(self.params)]
-        if not all(state):
+        """The Adam state in optax's layout (chain(scale_by_adam,
+        scale_by_schedule)): `0/count`, `0/mu/<param>`, `0/nu/<param>` and
+        `1/count`, so the JAX package resumes from it; empty before the
+        first update."""
+        paths = leaves_with_paths(self.params)
+        state = {k: self.optimizer.state.get(p) for k, p in paths.items()}
+        if not all(state.values()):
             return {}
-        return {"exp_avg": [s["exp_avg"] for s in state],
-                "exp_avg_sq": [s["exp_avg_sq"] for s in state],
-                "step": [s["step"] for s in state]}
+        count = np.int32(int(next(iter(state.values()))["step"]))
+        return {"0": {"count": count,
+                      "mu": {k: s["exp_avg"] for k, s in state.items()},
+                      "nu": {k: s["exp_avg_sq"] for k, s in state.items()}},
+                "1": {"count": count}}
 
     def save_checkpoint(self, step: int, score: Optional[float] = None) -> None:
         state = {
-            "model": {k: self.params[k] for k in ("table", "density_mlp", "color_mlp")},
+            "model": self.params,
             "occupancy": {"occs": self.grid.occs, "binary": self.grid.binary},
             "optimizer": self._optimizer_tree(),
         }
         self.ckpt_manager.save(step, state, self.compose_meta(), score)
 
     def load_checkpoint(self) -> int:
+        """Resume from a checkpoint of either package (the optimizer state
+        too, unless --no_load_opt or the checkpoint has none)."""
         path = self.ckpt_manager.resolve(self.config.ckpt_path)
         if path is None:
             return 0
         flat, meta = load_checkpoint(path)
+        paths = leaves_with_paths(self.params)
         with torch.no_grad():
-            loaded = _params_from_flat(flat, self.device)
-            for dst, src in zip(ngp.parameters(self.params), ngp.parameters(loaded)):
-                dst.copy_(src)
-        if not self.config.no_load_opt and "optimizer::step/0" in flat:
-            for i, p in enumerate(ngp.parameters(self.params)):
+            for k, p in paths.items():
+                p.copy_(torch.as_tensor(flat[f"model::{k}"], dtype=torch.float32))
+        if not self.config.no_load_opt and "optimizer::0/count" in flat:
+            count = float(flat["optimizer::0/count"])
+            for k, p in paths.items():
                 self.optimizer.state[p] = {
-                    "step": torch.tensor(float(flat[f"optimizer::step/{i}"])),
-                    **{k: torch.as_tensor(flat[f"optimizer::{k}/{i}"],
-                                          dtype=torch.float32, device=self.device)
-                       for k in ("exp_avg", "exp_avg_sq")}}
+                    "step": torch.tensor(count),
+                    **{name: torch.as_tensor(flat[f"optimizer::0/{m}/{k}"],
+                                             dtype=torch.float32, device=self.device)
+                       for name, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
         self.grid = occupancy.occupancy_from_numpy(
             flat["occupancy::occs"], flat["occupancy::binary"], self.device)
         self.num_rays = int(meta.get("num_rays", self.num_rays))
@@ -377,24 +417,21 @@ class NGPTrainer:
         return int(meta["step"])
 
 
-def _params_from_flat(flat: dict, device) -> ngp.Params:
-    return ngp.params_from_jax({
-        "table": flat["model::table"],
-        "density_mlp": [flat[f"model::density_mlp/{i}"] for i in range(2)],
-        "color_mlp": [flat[f"model::color_mlp/{i}"] for i in range(3)],
-    }, device)
-
-
 def load_field_from_checkpoint(path: str, device=None):
     """(params, grid, meta, model_config, render_config) from one checkpoint
-    written by either package."""
+    written by either package, of any field family (meta["field"])."""
     dev = resolve_device(device)
     flat, meta = load_checkpoint(path)
-    if meta.get("field", "ngp") != "ngp":
-        raise NotImplementedError(f"field {meta['field']!r} is not ported yet")
+    field_name = meta.get("field", "ngp")
     mc = dict(meta.get("model_config", {}))
-    mc.setdefault("unbounded", bool(meta.get("unbounded", False)))
-    model_cfg = ngp.config_from_meta(mc)
+    if field_name == "ngp":
+        mc.setdefault("unbounded", bool(meta.get("unbounded", False)))
+        model_cfg = ngp.config_from_meta(mc)
+    else:
+        model_cfg = VanillaNeRFConfig(
+            warp=bool(mc.get("warp", field_name == "dnerf")),
+            compute_dtype=torch.bfloat16 if mc.get("bf16", True) else torch.float32)
+    params = get_field(field_name).params_from_jax(unflatten(flat, "model::"), dev)
     grid = occupancy.occupancy_from_numpy(flat["occupancy::occs"],
                                           flat["occupancy::binary"], dev)
     render_cfg = RenderConfig(
@@ -404,4 +441,4 @@ def load_field_from_checkpoint(path: str, device=None):
         far_plane=float(meta.get("far_plane", 1e10) or 1e10),
         max_steps=int(meta.get("max_march_steps", 1024)),
     )
-    return _params_from_flat(flat, dev), grid, meta, model_cfg, render_cfg
+    return params, grid, meta, model_cfg, render_cfg

@@ -1,6 +1,6 @@
-"""Multi-block splitting in the port (datasets/kmeans.py, datasets/base.py)
-against scikit-learn and the JAX package: k-means labels equal to
-sklearn's (not up to a permutation: a block's id keys its world frame),
+"""Multi-block splitting in the port (datasets/kmeans.py,
+datasets/spectral.py, datasets/base.py) against scikit-learn and the JAX
+package: k-means and spectral labels equal to sklearn's (not up to a permutation: a block's id keys its world frame),
 the world frames and their file bit for bit, the same blocks from
 make_blocks, each package reading the other's world_frame_transforms.json,
 and the --dataset dispatch."""
@@ -8,7 +8,7 @@ import os
 
 import numpy as np
 import pytest
-from sklearn.cluster import KMeans
+from sklearn.cluster import KMeans, SpectralClustering
 
 from dregnerf_tpu.datasets import base as jbase
 from dregnerf_tpu_torch.datasets import base as tbase
@@ -165,19 +165,16 @@ def _accepts(parse, name):
 
 def test_dataset_dispatch(capsys):
     """--dataset takes the JAX package's choices; every choice and alias
-    names the same loader as in the JAX package; dnerf raises
-    NotImplementedError, unknown names ValueError."""
+    names the same loader as in the JAX package (dnerf included); unknown
+    names raise ValueError."""
     from dregnerf_tpu.runtime.config import config_parser as jconfig_parser
 
     assert tbase.DATASET_MODULES == jbase.DATASET_MODULES
     accepted = [n for n in tbase.DATASET_MODULES if _accepts(jconfig_parser, n)]
     assert len(accepted) == 10
     assert [n for n in tbase.DATASET_MODULES if _accepts(tconfig_parser, n)] == accepted
+    assert "dnerf" in accepted
     for name in tbase.DATASET_MODULES:
-        if tbase.DATASET_MODULES[name] == "dnerf_synthetic":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-                tbase.dataset_module(name)
-            continue
         module = tbase.dataset_module(name)
         assert module.__name__ == f"dregnerf_tpu_torch.datasets.{tbase.DATASET_MODULES[name]}"
         assert callable(module.load_blocks)
@@ -193,8 +190,40 @@ def test_block_flags_match_jax():
         assert getattr(t, name) == getattr(j, name), name
 
 
+def _ring(num_views):
+    """Cameras [N, 3, 4] evenly spaced on a ring of radius 4, at heights
+    0.3-0.5 (only the centres matter)."""
+    th = 2 * np.pi * np.arange(num_views) / num_views
+    c2w = np.zeros((num_views, 3, 4), np.float32)
+    c2w[:, :, 3] = np.stack([4 * np.cos(th), 4 * np.sin(th),
+                             0.3 + 0.1 * (np.arange(num_views) % 3)], 1)
+    return c2w
+
+
+def _sklearn_spectral(points, k):
+    return SpectralClustering(n_clusters=k, random_state=0,
+                              assign_labels="discretize").fit_predict(points)
+
+
+def _assert_spectral_labels(c2w):
+    for k in (2, 3, 4):
+        want = _sklearn_spectral(c2w[:, :3, 3], k)
+        np.testing.assert_array_equal(tbase.cluster_cameras(c2w, k, method="Spectral"), want)
+        np.testing.assert_array_equal(jbase.cluster_cameras(c2w, k, method="Spectral"), want)
+
+
 def test_spectral_clustering_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tbase.cluster_cameras(_rig(12), 2, method="Spectral")
+    """Now ported: cluster_cameras(method="Spectral") gives sklearn's
+    SpectralClustering(random_state=0, assign_labels="discretize") labels
+    exactly (not up to a permutation) on the 12-, 24- and 36-view fixture
+    rigs at k = 2-4, as the JAX package's call does; an unknown method
+    raises ValueError."""
+    for num_views in (12, 24, 36):
+        _assert_spectral_labels(_rig(num_views))
     with pytest.raises(ValueError):
         tbase.cluster_cameras(_rig(12), 2, method="Agglomerative")
+
+
+@pytest.mark.parametrize("num_views", [8, 12, 16, 24, 36, 48])
+def test_spectral_labels_equal_sklearns_on_a_ring(num_views):
+    _assert_spectral_labels(_ring(num_views))

@@ -1,7 +1,8 @@
 """Port parity for stage 2: voxel extraction (extract/sample_grid.py), the
 artifact writer and the evaluator (eval_ngp_nerf.py) against the JAX
-package, on one tiny block built and saved by the JAX package and loaded
-by the port, with JAX's jitter draw handed to the port.
+package, on one tiny packed-grid block built and saved by the JAX package
+and on one xor-hash block the JAX package trained, each loaded by the
+port, with JAX's jitter draw handed to the port.
 
 Tolerances: points 1e-6; rgb, sigma, alpha and the surface scores 1e-5
 (f32 everywhere, sums in another order); the masks equal wherever the
@@ -30,6 +31,7 @@ from dregnerf_tpu_torch import eval_ngp_nerf as teval
 from dregnerf_tpu_torch.datasets import fixtures as tfix
 from dregnerf_tpu_torch.extract import sample_grid as tsg
 from dregnerf_tpu_torch.io.ply import read_ply, write_ply
+from dregnerf_tpu_torch.ops import hash_encoding as TH
 from dregnerf_tpu_torch.render.renderer import RenderConfig as TRenderConfig
 from dregnerf_tpu_torch.runtime import ngp_trainer as TT
 from dregnerf_tpu_torch.runtime.config import config_parser as tconfig_parser
@@ -84,6 +86,75 @@ def block(tmp_path_factory):
                                        text["points"], cams, return_scores=True)
     return types.SimpleNamespace(root=root, path=path, jext=jext, text=text,
                                  jscores=jscores, tscores=tscores)
+
+
+@pytest.fixture(scope="module")
+def hash_block(tmp_path_factory):
+    """A hash-grid block trained by the JAX package (HashGridConfig(4
+    levels, 2^11 rows), f32, 200 steps on 6 fixture views, the training
+    setup of the JAX package's own test of a hash block), extracted by both
+    packages from its checkpoint with the same jitter. The port's packed
+    encoder must not be reached."""
+    from dregnerf_tpu.datasets import fixtures as jfix
+    from dregnerf_tpu.datasets.base import load_scene_blocks
+    from dregnerf_tpu.ops.hash_encoding import HashGridConfig as JHash
+    from dregnerf_tpu.runtime.config import config_parser as jconfig_parser
+    from dregnerf_tpu_torch.models import ngp as tngp
+
+    root = tmp_path_factory.mktemp("hash_block")
+    data = str(root / "data")
+    jfix.make_scene(data, num_views=6, image_size=32)
+    cfg = jconfig_parser([
+        "--dataset", "objaverse", "--root_dir", data, "--scene", "fixture_scene",
+        "--expname", "hash", "--out_dir", str(root / "out"), "--factor", "1",
+        "--aabb=-1.0,-1.0,-1.0,1.0,1.0,1.0", "--max_iterations", "200",
+        "--sample_budget", str(1 << 13), "--max_march_steps", "64", "--grid_resolution",
+        str(RES), "--init_num_rays", "256", "--max_num_rays", "1024", "--n_tensorboard",
+        "1000", "--n_validation", "10000", "--n_checkpoint", "200", "--no_bf16",
+        "--compilation_cache", ""])
+    scene = load_scene_blocks("objaverse", data, "fixture_scene", "train")[0]
+    trainer = JT.NGPTrainer(cfg, scene, scene)
+    trainer.model_config = jngp.NGPConfig(grid=JHash(n_levels=4, log2_table_size=11),
+                                          compute_dtype=jnp.float32)
+    trainer.params = jngp.init_ngp(jax.random.PRNGKey(0), trainer.model_config)
+    trainer.opt_state = trainer.optimizer.init(trainer.params)
+    trainer.state.params, trainer.state.opt_state = trainer.params, trainer.opt_state
+    trainer._step_fns = {}
+    trainer.__dict__.pop("_occ_update_fns", None)
+    trainer.train()
+    path = os.path.join(trainer.output_dir, "model", "model.ckpt")
+    jp, jgrid, jmeta, jmc, _ = JT.load_field_from_checkpoint(path)
+    tp, tgrid, tmeta, tmc, _ = TT.load_field_from_checkpoint(path, device="cpu")
+    key = jax.random.PRNGKey(5)
+    jitter = np.asarray(jax.random.uniform(key, (int(np.asarray(jgrid.binary).sum()), 3)))
+    jext = jsg.extract_voxel_features(jp, jmc, jgrid, jmeta, key)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a hash-grid block reached the packed encoder")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tngp, "pack_table", refuse)
+        mp.setattr(tngp, "packed_encode", refuse)
+        text = tsg.extract_voxel_features(tp, tmc, tgrid, tmeta, jitter=jitter, device="cpu")
+    return types.SimpleNamespace(meta=jmeta, tmc=tmc, jext=jext, text=text)
+
+
+def test_hash_block_extracts_like_jax(hash_block):
+    """The JAX-trained xor-hash block: the port reads its meta as a hash
+    grid, and its extraction equals JAX's at the tolerances of the packed
+    block above."""
+    meta, j, t = hash_block.meta, hash_block.jext, hash_block.text
+    assert meta["model_config"]["encoder"] == "xor_hash"
+    assert hash_block.tmc.grid == TH.HashGridConfig(n_levels=4, log2_table_size=11)
+    np.testing.assert_array_equal(t["indices"], j["indices"])
+    np.testing.assert_allclose(t["points"], j["points"], rtol=0, atol=1e-6)
+    for name in ("rgb", "sigma", "alpha"):
+        np.testing.assert_allclose(t[name], j[name], rtol=1e-5, atol=1e-5, err_msg=name)
+    far = np.abs(j["sigma"] - tsg.DENSITY_THRESHOLD) > NEAR
+    np.testing.assert_array_equal(t["density_mask"][far], j["density_mask"][far])
+    np.testing.assert_array_equal(t["surface_mask"], j["surface_mask"])
+    both = t["surface_mask"] & t["density_mask"]
+    assert 0 < both.sum() < t["density_mask"].sum() < len(t["sigma"])
 
 
 def test_points_and_features_match_jax(block):

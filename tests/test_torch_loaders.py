@@ -14,6 +14,8 @@ import shutil
 import numpy as np
 import pytest
 
+from dregnerf_tpu.datasets import dnerf_synthetic as jdnerf
+from dregnerf_tpu.datasets import fixtures as jfix
 from dregnerf_tpu.datasets import hypersim as jhypersim
 from dregnerf_tpu.datasets import mvs as jmvs
 from dregnerf_tpu.datasets import nerf_synthetic as jnerf_synthetic
@@ -21,6 +23,7 @@ from dregnerf_tpu.datasets import nsvf as jnsvf
 from dregnerf_tpu.datasets import real_world as jreal_world
 from dregnerf_tpu.datasets import scannerf as jscannerf
 from dregnerf_tpu.utils import colmap as JC
+from dregnerf_tpu_torch.datasets import dnerf_synthetic as tdnerf
 from dregnerf_tpu_torch.datasets import hypersim as thypersim
 from dregnerf_tpu_torch.datasets import mvs as tmvs
 from dregnerf_tpu_torch.datasets import nerf_synthetic as tnerf_synthetic
@@ -124,6 +127,46 @@ def test_nerf_synthetic_matches_jax(tmp_path, multi_blocks):
 def test_nerf_synthetic_factor_matches_jax(tmp_path):
     _compare(tmp_path, _make_nerf_synthetic, jnerf_synthetic, tnerf_synthetic, ("train",),
              False, factor=2)
+
+
+def _make_dnerf(root):
+    """The JAX package's time-stamped fixture (tests/test_datasets_and_models.py:
+    the objaverse fixture's frames with time i / (N - 1), both splits)."""
+    subject = jfix.make_scene(root, num_views=8, image_size=16, name=SUBJECT)
+    with open(os.path.join(subject, "transforms.json")) as f:
+        meta = json.load(f)
+    for i, frame in enumerate(meta["frames"]):
+        frame["time"] = i / max(len(meta["frames"]) - 1, 1)
+    for split in ("train", "test"):
+        with open(os.path.join(subject, f"transforms_{split}.json"), "w") as f:
+            json.dump(meta, f)
+
+
+@pytest.mark.parametrize("factor", [1, 2])
+def test_dnerf_matches_jax(tmp_path, factor):
+    """Every frame of each split, the times i / 7 in order, near/far 2/6;
+    multi_blocks is ignored by both loaders (one block, no frame file)."""
+    _compare(tmp_path, _make_dnerf, jdnerf, tdnerf, ("train", "test"), False, factor)
+    for split in ("train", "test"):
+        want = jdnerf.load_blocks(str(tmp_path / "jax"), SUBJECT, split, factor, True, 2)
+        got = tdnerf.load_blocks(str(tmp_path / "port"), SUBJECT, split, factor, True, 2)
+        assert len(got) == len(want) == 1
+        _assert_same_blocks(got, want)
+        got, want = got[0], want[0]
+        assert got.timestamps.dtype == want.timestamps.dtype == np.float32
+        np.testing.assert_array_equal(got.timestamps, want.timestamps)
+        assert got.timestamps.max() == 1.0 and (got.near, got.far) == (2.0, 6.0)
+    assert not (tmp_path / "port" / SUBJECT / "world_frame_transforms.json").exists()
+
+
+def test_dnerf_scene_from_arrays_equals_the_loader(tmp_path):
+    """The in-memory constructor gives what the loader reads from the files."""
+    _make_dnerf(str(tmp_path))
+    want = tdnerf.load_blocks(str(tmp_path), SUBJECT, "train")[0]
+    got = tdnerf.scene_from_arrays(want.images, want.camtoworlds, want.K, want.timestamps,
+                                   "train", SUBJECT)
+    _assert_same_blocks([got], [want])
+    np.testing.assert_array_equal(got.timestamps, want.timestamps)
 
 
 def _make_nsvf(root):
