@@ -49,12 +49,20 @@ Phases, in order; any failure exits non-zero:
      by NeRFRegDataset with its pose from the written frames, and
      RegEvaluator.evaluate() with --icp_refine on seeded weights (the
      classical baseline's RRE/RTE on two NeRFs trained in their frames);
-  8. the `compact` and `quota` training marchers (`marchers`): at 2^15 rays
+  8. novel views of that pair (`novel views`): one 100 x 100 frame of
+     block 0 from its first training camera through synthesize_novel_views
+     on the card and on the CPU (PSNR at least NV_PSNR_MIN, opacity over
+     0.5 on at least NV_OPACITY_SHARE_MIN of the pixels), then
+     RegEvaluator.evaluate() with --render_videos: every src, tgt and pair
+     frame and depth of the gt, aligned and unaligned orbits on disk at
+     its shape, the mp4 exactly when ffmpeg is on PATH, K2p launches
+     counted, render_pair_views timed;
+  9. the `compact` and `quota` training marchers (`marchers`): at 2^15 rays
      x 1024 steps and a 2^18 budget on a trained block's grid, the card
      against the CPU (equal samples, t_start within 1e-6), each one's
      cumsum timed; MARCH_STEPS full-width steps under each and
      under `capped` (finite losses, K1p and K2p 4 launches a step);
-  9. stage 3 on the grid that phase 6 extracted on the card: a two-block
+ 10. stage 3 on the grid that phase 6 extracted on the card: a two-block
      scene (the block, and a copy whose occupied xyz a known SE(3) moves),
      loaded through NeRFRegDataset; seeded flax-layout weights saved as a
      JAX-layout checkpoint and read by the eval twin (RegEvaluator); the
@@ -64,21 +72,23 @@ Phases, in order; any failure exits non-zero:
      with --icp_refine (the ICP polish and the classical baseline, its
      fgr_metrics_test.json); the card against the CPU at R = 32 (a crop of
      the grid), in f32 and in bf16, with stated tolerances;
- 10. classical registration on that pair's voxel point clouds
+ 11. classical registration on that pair's voxel point clouds
      (`classical`): icp_refine from the RegTr pose, global_colored_icp and
      best_global_registration(refine=True) on the card, timed (wall, CUDA
      events, one profiled icp_refine, the host's FGR/RANSAC seconds apart,
      the bound of a fused distance-and-argmin kernel); the card against the
      CPU (CLASSICAL_PARITY_TOL); the results against the known pose
      (CLASSICAL_TOL); no race candidate may carry an error;
- 11. stage-3 training on that pair (`register train`): RegTrainer at full
+ 12. stage-3 training on that pair (`register train`): RegTrainer at full
      width in bf16 from the config, 2 + 10 steps on the device-cached,
      augmented path (finite losses, no skipped step, the parameters moved,
      optimizer count 12) with ms a step, peak memory, FLOPs of a step
      against the bf16 peak, and the idle share, device operations and top
      kernels of one profiled step; one step on a batch whose rgb holds a
      NaN (parameters, moments and counts bit for bit unchanged);
-     validate(), save_checkpoint, load_checkpoint and RegEvaluator on the
+     validate() with the pose viewer on (--enable_visdom on a free port;
+     its /state.json read back: the step, 3 point and 3 line traces),
+     save_checkpoint, load_checkpoint and RegEvaluator on the
      trained weights; one f32 step (TF32 off) from the trainer's state, card
      against CPU on the R = 32 crop, within REG_STEP_TOL; two steps with --visibility exact
      through the phase-6 block's NeRF (K2p must launch; the first call on
@@ -86,10 +96,10 @@ Phases, in order; any failure exits non-zero:
      index_select on the path's own inputs, and timed alone against its
      bytes bound from its distinct rows), their labels against the
      voxel-mask labels and K2p in the profiler;
- 12. training under grad_accum "pallas" without the run-length backward
+ 13. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
- 13. the other fields (`fields`): card against CPU, the full-width xor-hash
+ 14. the other fields (`fields`): card against CPU, the full-width xor-hash
      encoder on 2^16 points (corner rows equal; output and table gradient
      within FIELDS_TOL) and one f32 step of --field vanilla and of --field
      dnerf at FIELDS_SMALL; then --field vanilla and --field dnerf at full
@@ -102,7 +112,7 @@ Phases, in order; any failure exits non-zero:
      "xor_hash"), evaluated and extracted through Evaluator, with its
      surface rays/s; K1, K1p and K2p launch in none of it; a `fields`
      JSON line;
- 14. a JSON line of every kernel with its launches on its path, time, plain
+ 15. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -218,6 +228,12 @@ FIELDS_SMALL = dict(net_depth=6, net_width=32, net_width_condition=16, posenc_xy
 FIELD_STEPS = 128  # full-width steps of --field vanilla and of --field dnerf
 HASH_STEPS = EXTRACT_STEPS  # the hash-grid NGP trains to this step, then is extracted
 DNERF_VAL_VIEWS = (10, 30)  # the dnerf phase's val views (times 10/35 and 30/35)
+NV_FACTOR = 8  # the evaluator's render size: 100 x 100 at objaverse's intrinsics
+NV_PSNR_MIN = 35.0  # dB, card against CPU on one frame of a trained block
+NV_OPACITY_SHARE_MIN = 0.05  # of that frame's pixels with opacity over 0.5
+NV_TAGS = ("gt", "aligned", "unaligned")
+NV_ORBIT = 12  # cameras of the evaluator's orbit
+NV_K2P_PER_RENDER = 8  # 2 chunks of 8192 rays (10^4 padded) x 4 encoder levels
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1109,7 +1125,133 @@ def multi_block_phase(torch, out_dir: str) -> dict:
     return {"launches": launches, "train_launches": train_launches, "blocks": per_block,
             "frame_shares": shares, "baseline": {k: base[k] for k in ("R_error_deg", "t_error",
                                                                        "winner")},
-            "grid": trainers[0].grid}
+            "grid": trainers[0].grid, "model_dirs": model_dirs, "subject": subject,
+            "reg_ckpt": ckpt}
+
+
+def novel_views_phase(torch, multi: dict, out_dir: str) -> dict:
+    """The multi-block pair's NeRFs rendered (see the module docstring,
+    phase 8): one frame card against CPU, then RegEvaluator.evaluate()
+    with --render_videos; returns K2p's launches and the render times."""
+    import shutil
+
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.eval_nerf_regtr import RegEvaluator
+    from dregnerf_tpu_torch.render import novel_views
+    from dregnerf_tpu_torch.runtime.checkpoint import load_checkpoint
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.utils.png import read_png
+
+    # card against CPU: block 0 from its first training camera
+    ckpt0 = os.path.join(multi["model_dirs"][0], "model", "model.ckpt")
+    _, meta = load_checkpoint(ckpt0)
+    pose = np.asarray(meta["camera_poses"], np.float32)[:1]
+    renders = []  # (rgb, opacity, depth) of the card's render, then the CPU's
+    real_render = novel_views.render_image_chunked
+
+    def recorded(*args, **kwargs):
+        out = real_render(*args, **kwargs)
+        renders.append([t.float().cpu().numpy() for t in out])
+        return out
+
+    novel_views.render_image_chunked = recorded
+    seconds = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            paths = novel_views.synthesize_novel_views(
+                ckpt0, pose, os.path.join(out_dir, "novel_views", dev), "objaverse", NV_FACTOR,
+                device=dev)
+            torch.cuda.synchronize()
+            seconds[dev] = time.perf_counter() - t0
+            check(len(paths) == 1 and read_png(paths[0]).shape == (100, 100, 3),
+                  f"synthesize_novel_views on {dev}: {paths}")
+    finally:
+        novel_views.render_image_chunked = real_render
+    check(len(renders) == 2, f"{len(renders)} renders for one frame on two devices")
+    (rgb, opacity, depth), (rgb_c, _, depth_c) = renders
+    err = np.abs(rgb - rgb_c)
+    psnr = -10.0 * math.log10(max(float(np.mean(err ** 2)), 1e-20))
+    derr = np.abs(depth - depth_c)
+    share = float(np.mean(opacity > 0.5))
+    print(f"novel views [card against CPU, block 0 from its first training camera, "
+          f"{rgb.shape[0]} rays]: rgb max abs err {err.max():.3e}, mean {err.mean():.3e}, PSNR "
+          f"{psnr:.3f} dB (stated minimum {NV_PSNR_MIN}); depth max abs err {derr.max():.3e}, "
+          f"mean {derr.mean():.3e}; opacity > 0.5 on {share:.4f} of the pixels (stated minimum "
+          f"{NV_OPACITY_SHARE_MIN}); {seconds['cuda']:.3f} s on the card, {seconds['cpu']:.3f} "
+          f"s on the CPU (load and one render)", flush=True)
+    check(psnr >= NV_PSNR_MIN and share >= NV_OPACITY_SHARE_MIN and np.isfinite(rgb).all()
+          and np.isfinite(depth).all(),
+          f"novel views card against CPU: PSNR {psnr}, opacity share {share}")
+
+    # the evaluator's --render_videos on the pair, timed through a spy
+    subject = multi["subject"]
+    cfg = config_parser(["--out_dir", out_dir, "--expname", "chip_smoke_mb_videos",
+                         "--root_dir", out_dir, "--scene", subject, "--ckpt_path",
+                         multi["reg_ckpt"], "--render_videos"])
+    dataset = NeRFRegDataset(out_dir, subject_id=subject, split="test", seed=cfg.seed)
+    ev = RegEvaluator(cfg, dataset)
+    spans = []
+    real_pair = novel_views.render_pair_views
+
+    def timed_pair(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_pair(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t)
+        return out
+
+    novel_views.render_pair_views = timed_pair
+    try:
+        t1 = time.perf_counter()
+        _reset_kernel_launches()
+        ev.evaluate()
+        counts = _kernel_launches()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        novel_views.render_pair_views = real_pair
+    scene_dir = os.path.join(ev.output_dir, subject)
+    ffmpeg = shutil.which("ffmpeg") is not None
+    for tag in NV_TAGS:
+        for side in ("src", "tgt"):
+            sub = os.path.join(scene_dir, f"{tag}_{side}_images")
+            for i in range(NV_ORBIT):
+                frame = os.path.join(sub, f"frame_{i:04d}.png")
+                depth_path = os.path.join(sub, f"depth_{i:04d}.npy")
+                check(os.path.exists(frame) and read_png(frame).shape == (100, 100, 3)
+                      and os.path.exists(depth_path)
+                      and np.load(depth_path).shape == (100, 100),
+                      f"--render_videos: {tag} {side} frame {i} missing or misshapen")
+            check(len(os.listdir(sub)) == 2 * NV_ORBIT, f"{sub}: {sorted(os.listdir(sub))}")
+        pair_dir = os.path.join(scene_dir, f"{tag}_images")
+        frames = sorted(f for f in os.listdir(pair_dir) if f.startswith("frame_"))
+        check(len(frames) == NV_ORBIT and all(
+            read_png(os.path.join(pair_dir, f)).shape == (100, 400, 3) for f in frames),
+            f"--render_videos: {tag} pair frames {frames}")
+        mp4 = os.path.exists(os.path.join(scene_dir, f"{tag}_src_tgt_rgb_depth.mp4"))
+        check(mp4 == ffmpeg, f"{tag}: mp4 written {mp4}, ffmpeg on PATH {ffmpeg}")
+    n_renders = len(NV_TAGS) * 2 * NV_ORBIT
+    render_s = sum(spans)
+    rays = n_renders * 100 * 100
+    check(len(spans) == len(NV_TAGS), f"render_pair_views ran {len(spans)} times")
+    launches = counts["gather_rows"]
+    check(launches > 0 and counts["scatter_add"] == counts["scatter_add_bf16"] == 0,
+          f"--render_videos launches (K2p must launch, K1 and K1p not): {counts}")
+    print(f"novel views [RegEvaluator.evaluate() --render_videos, {len(NV_TAGS)} tags x "
+          f"{NV_ORBIT} orbit cameras x 2 NeRFs = {n_renders} renders of 100 x 100]: every "
+          f"frame, depth and pair frame written; mp4 {'written (ffmpeg on PATH)' if ffmpeg else 'not written (no ffmpeg on PATH)'}; "
+          f"K2p launches {launches} (expected {NV_K2P_PER_RENDER} a render = "
+          f"{NV_K2P_PER_RENDER * n_renders}), K1 and K1p none; render_pair_views {render_s:.3f} s "
+          f"({[round(x, 3) for x in spans]} s a tag): {n_renders / render_s:.2f} renders/s, "
+          f"{len(NV_TAGS) * NV_ORBIT / render_s:.2f} pair frames/s, {rays / render_s:.1f} "
+          f"rays/s; evaluate() {t2 - t1:.3f} s in all", flush=True)
+    return {"k2p_launches": launches, "render_s": render_s, "renders": n_renders,
+            "rays_per_s": rays / render_s, "psnr_card_cpu": psnr, "opacity_share": share,
+            "ffmpeg": ffmpeg}
 
 
 def marcher_phase(torch, grid, out_dir: str) -> dict:
@@ -1367,7 +1509,7 @@ def reg_parity_phase(torch, models: dict, item: dict) -> None:
 
 def register_phase(torch, block_dir: str, out_dir: str) -> tuple[str, str]:
     """Stage 3 on the block stage 2 extracted on the card (see the module
-    docstring, phase 9); returns the pair's (root, subject)."""
+    docstring, phase 10); returns the pair's (root, subject)."""
     import numpy as np
 
     from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
@@ -1749,7 +1891,7 @@ def reg_train_parity_phase(torch, trainer, item) -> None:
 
 def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     """Stage-3 training at full width in bf16 on the register phase's pair
-    (see the module docstring, phase 11). Returns the K2p launches of the
+    (see the module docstring, phase 12). Returns the K2p launches of the
     exact-visibility steps and K2p's times and bounds on that path."""
     import numpy as np
     from torch.utils.flop_counter import FlopCounterMode
@@ -1764,7 +1906,8 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
 
     flags = ["--root_dir", root, "--scene", subject, "--out_dir", out_dir, "--val_fraction",
              "1.0"]
-    cfg = config_parser(flags + ["--expname", "chip_smoke_reg_train"])
+    cfg = config_parser(flags + ["--expname", "chip_smoke_reg_train", "--enable_visdom",
+                                 "--visdom_port", "0"])
     train_ds = NeRFRegDataset(root, subject_id=subject, split="train", seed=cfg.seed)
     val_ds = NeRFRegDataset(root, subject_id=subject, split="test", seed=cfg.seed)
     t0 = time.perf_counter()
@@ -1851,6 +1994,17 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     score = trainer.validate(fraction=1.0)
     t3 = time.perf_counter()
     check(math.isfinite(score), f"validate score {score}")
+    state = read_pose_viewer(trainer.pose_viz.port)
+    kinds = [t["kind"] for t in state["traces"]]
+    lines = [t for t in state["traces"] if t["kind"] == "lines"]
+    check(state["step"] == trainer.iteration and kinds.count("points") == 3
+          and len(lines) == 3 and sum(bool(t.get("dash")) for t in lines) == 1,
+          f"pose viewer state: step {state['step']} (iteration {trainer.iteration}), {kinds}")
+    print(f"register train pose viewer (--enable_visdom, port {trainer.pose_viz.port}): "
+          f"/state.json at step {state['step']} holds {kinds.count('points')} point traces "
+          f"({[len(t['points']) for t in state['traces'] if t['kind'] == 'points']} points) "
+          f"and {len(lines)} line traces (two frustum sets, the centre segment)", flush=True)
+    trainer.pose_viz.close()
     trainer.save_checkpoint(score)
     t4 = time.perf_counter()
     ckpt = os.path.join(trainer.output_dir, "model", "model.ckpt")
@@ -1986,6 +2140,14 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
             "k2p_exact": dict(mean, profiled_us_a_launch=k2p_us, calls=exact_calls)}
 
 
+def read_pose_viewer(port: int) -> dict:
+    """The pose viewer's /state.json, read over localhost."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/state.json", timeout=30) as r:
+        return json.loads(r.read())
+
+
 def train_pallas_phase(torch, out_dir: str) -> int:
     """grad_accum "pallas" without RLE at full width: K1 on every level.
     Steps 49-63 have no occupancy update: their ms/step compares with the
@@ -2026,7 +2188,7 @@ def train_pallas_phase(torch, out_dir: str) -> int:
 
 
 def fields_parity(torch, dev) -> dict:
-    """Phase 13a: the hash encoder at full width and one f32 step of each
+    """Phase 14a: the hash encoder at full width and one f32 step of each
     MLP field at FIELDS_SMALL, on the card against the CPU (FIELDS_TOL)."""
     from dregnerf_tpu_torch.datasets.fixtures import make_scene_data
     from dregnerf_tpu_torch.models import fields, mlp_nerf
@@ -2190,7 +2352,7 @@ def _check_checkpoint_round_trip(torch, trainer, step: int) -> str:
 
 
 def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
-    """Phases 13b and 13c: --field `name` at full width (8x256, bf16) at
+    """Phases 14b and 14c: --field `name` at full width (8x256, bf16) at
     SHAPE_FLAGS on the 36-view 128 px fixture (dnerf: every view at time
     i/35, validated on views DNERF_VAL_VIEWS at their times)."""
     import numpy as np
@@ -2274,7 +2436,7 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
 
 
 def hash_ngp_phase(torch, out_dir: str) -> dict:
-    """Phase 13d: the xor-hash NGP at full width (HashGridConfig(): 16
+    """Phase 14d: the xor-hash NGP at full width (HashGridConfig(): 16
     levels x 2^19 rows x 2 features, bf16 MLPs) swapped into the trainer at
     SHAPE_FLAGS, trained to HASH_STEPS, profiled, saved, and evaluated and
     extracted through Evaluator; K1, K1p and K2p must never launch."""
@@ -2354,7 +2516,7 @@ def hash_ngp_phase(torch, out_dir: str) -> dict:
 
 
 def fields_phase(torch, dev, out_dir: str) -> dict:
-    """Phase 13: the vanilla and D-NeRF fields and the xor-hash NGP."""
+    """Phase 14: the vanilla and D-NeRF fields and the xor-hash NGP."""
     out = fields_parity(torch, dev)
     for name in ("vanilla", "dnerf"):
         out[name] = mlp_field_phase(torch, out_dir, name)
@@ -2400,6 +2562,7 @@ def main() -> int:
                                                out_dir)
         timed("extract", extract_phase, torch, trainer, cfg)
         multi = timed("multi-block", multi_block_phase, torch, out_dir)
+        views = timed("novel views", novel_views_phase, torch, multi, out_dir)
         marchers = timed("marchers", marcher_phase, torch, multi.pop("grid"), out_dir)
         block_dir = trainer.output_dir
         del trainer
@@ -2442,7 +2605,8 @@ def main() -> int:
         dict(entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
                    default_launches["gather_rows"], k2p),
              launches_by_path=dict(by_path("gather_rows"),
-                                   **{"register train exact visibility": exact["k2p_launches"]}),
+                                   **{"novel views": views["k2p_launches"],
+                                      "register train exact visibility": exact["k2p_launches"]}),
              multi_block_index_select_checks=sum(len(b["k2p_checked"])
                                                  for b in multi["blocks"]),
              exact_path={k: exact["k2p_exact"][k] for k in ("ms", "bound_ms",

@@ -10,17 +10,20 @@ clouds (under the polished pose); the classical baseline
 by ICP with `--icp_refine`); and the keypoint and overlap cloud dumps.
 Then metrics_test.json and fgr_metrics_test.json with the mean and
 median over pairs. The ICP runs on the evaluator's device, FGR and
-RANSAC on the host. The checkpoint is a JAX-layout RegTrainer checkpoint
-(`params::model/...`, `params::infonce_W`) written by either package;
-without one the random initialization is evaluated, with a warning.
-
-Not ported here: `--render_videos` (ROADMAP.md queue 1 item 5), which
-raises NotImplementedError.
+RANSAC on the host. With `--render_videos` (or DREG_RENDER_VIDEOS set)
+each pair's two NeRF checkpoints are rendered on the evaluator's device
+along a 12-camera orbit at factor 8, src beside tgt with the tgt cameras
+mapped by the ground-truth pose (`gt`), by the estimate (`aligned`) and
+not at all (`unaligned`): PNG frames and depths, and an mp4 when ffmpeg
+is on PATH (render/novel_views.py). The checkpoint is a JAX-layout
+RegTrainer checkpoint (`params::model/...`, `params::infonce_W`) written
+by either package; without one the random initialization is evaluated,
+with a warning.
 
 Usage:
   python -m dregnerf_tpu_torch.eval_nerf_regtr --dataset objaverse \
       --root_dir <root> [--scene <subject>] --expname <name> [--ckpt_path <ckpt>] \
-      [--icp_refine] [--no_bf16] [--device cpu]
+      [--icp_refine] [--render_videos] [--no_bf16] [--device cpu]
 """
 from __future__ import annotations
 
@@ -65,9 +68,6 @@ class RegEvaluator:
         from dregnerf_tpu_torch.models.regtr import params_from_jax, random_jax_params
         from dregnerf_tpu_torch.runtime.reg_trainer import make_reg_model
 
-        if config.render_videos or os.environ.get("DREG_RENDER_VIDEOS"):
-            raise NotImplementedError(
-                "--render_videos is not ported yet (ROADMAP.md queue 1 item 5)")
         self.config = config
         self.dataset = dataset
         self.device = resolve_device(device if device is not None
@@ -164,8 +164,49 @@ class RegEvaluator:
             except FileNotFoundError:
                 pass
             dump_keypoint_clouds(scene_dir, pred_np, pose, gt)
+            if self.config.render_videos or os.environ.get("DREG_RENDER_VIDEOS"):
+                self._render_videos(scene_dir, item, pose, gt)
             print(f"[eval] {scene}: RRE {rre:.3f} deg RTE {rte:.4f} ({dt:.2f}s)")
         return self._agg_and_write(per_scene, fgr_per_scene)
+
+    @staticmethod
+    def _orbit_poses(n: int = 12) -> np.ndarray:
+        """n camera-to-world poses on a circle of radius 3 at height 1.5,
+        each looking at the origin."""
+        poses = []
+        for i in range(n):
+            th = 2 * np.pi * i / n
+            eye = 3.0 * np.array([np.cos(th), np.sin(th), 0.5])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0, 0, 1.0])
+            right /= np.linalg.norm(right)
+            up = np.cross(right, fwd)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, -fwd, eye
+            poses.append(c2w)
+        return np.stack(poses)
+
+    def _render_videos(self, scene_dir: str, item: dict, pose_est: np.ndarray,
+                       pose_gt: np.ndarray) -> None:
+        """The fused-scene orbits of a pair, [src rgb | depth | tgt rgb | depth]
+        frames and an mp4, for `gt` and `aligned` (the tgt cameras mapped by
+        that pose) and `unaligned` (the same cameras); nothing without both
+        NeRF checkpoints. A tag that fails is reported and skipped, so that
+        the other tags are still rendered."""
+        from dregnerf_tpu_torch.render.novel_views import render_pair_views
+
+        src_ckpt = item.get("src_nerf_path", "")
+        tgt_ckpt = item.get("tgt_nerf_path", "")
+        if not all(p and os.path.exists(p) for p in (src_ckpt, tgt_ckpt)):
+            return
+        poses = self._orbit_poses()
+        for tag, transform in (("gt", pose_gt), ("aligned", pose_est), ("unaligned", None)):
+            try:
+                render_pair_views(src_ckpt, tgt_ckpt, poses, transform, scene_dir, tag,
+                                  self.config.dataset or "objaverse", factor=8,
+                                  device=self.device)
+            except Exception as e:  # noqa: BLE001 — one tag must not drop the others
+                print(f"[eval] video {tag} skipped: {e}")
 
     def _agg_and_write(self, per_scene: dict, fgr_per_scene: dict) -> dict:
         def agg(d):

@@ -53,7 +53,8 @@ def config_parser(argv=None) -> argparse.Namespace:
                    help="eval: polish each RegTr pose, and the classical baseline's winner, "
                    "with the colour-aware multi-start ICP (registration/icp.py)")
     p.add_argument("--render_videos", action="store_true",
-                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5)")
+                   help="registration eval: render fused src/tgt novel-view frames and "
+                   "videos (gt/aligned/unaligned orbits)")
 
     p.add_argument("--ckpt_path", type=str, default="")
     p.add_argument("--no_load_opt", action="store_true")
@@ -62,9 +63,13 @@ def config_parser(argv=None) -> argparse.Namespace:
                    "part of the optimizer state (--no_load_opt)")
 
     p.add_argument("--enable_tensorboard", action="store_true",
-                   help="not ported: says so; scalars go to log.txt and log.jsonl")
+                   help="write scalars to a tensorboardX event file under "
+                   "<out_dir>/logs/<expname> (when tensorboardX is installed)")
     p.add_argument("--enable_visdom", action="store_true",
-                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5)")
+                   help="registration training: start the live pose viewer "
+                   "(utils/pose_server.py) on --visdom_port")
+    p.add_argument("--visdom_port", type=int, default=8097,
+                   help="port of the pose viewer (0: any free port)")
     p.add_argument("--n_tensorboard", type=int, default=30)
     p.add_argument("--n_validation", type=int, default=2500)
     p.add_argument("--n_checkpoint", type=int, default=5000)
@@ -118,8 +123,9 @@ def config_parser(argv=None) -> argparse.Namespace:
                    help="not ported: a non-empty value raises NotImplementedError "
                    "(ROADMAP.md queue 1 item 5)")
     p.add_argument("--watchdog_s", type=float, default=1200,
-                   help="not ported: the hang watchdog of registration training "
-                   "(ROADMAP.md queue 1 item 5); a non-zero value says so")
+                   help="hang watchdog of training: exit with code 86 when a step's "
+                   "heartbeat is this many seconds stale, for a supervisor to restart "
+                   "and resume from the latest checkpoint; 0 disables it")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     return p.parse_args(argv)

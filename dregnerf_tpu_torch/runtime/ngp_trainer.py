@@ -18,9 +18,12 @@ once every 8 steps with one interval of lag, so the host never waits for
 the step it just queued.
 
 The step's random draws (`StepDraws`) are tensors; the trainer draws them
-on the device from its own `torch.Generator`. Not ported yet: the watchdog
-and retry wrappers of `train()`, data-parallel and fleet training, and
-tensorboard (scalars go to `log.jsonl`).
+on the device from its own `torch.Generator`. `train()` runs each step
+through the retry wrapper (an emergency checkpoint on a fatal error) under
+the hang watchdog (`--watchdog_s`; runtime/resilience.py). Scalars go to
+the ScalarLogger (the printed line, log.txt, and tensorboard with
+`--enable_tensorboard`) and to log.jsonl. Not ported yet: data-parallel
+and fleet training.
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ from dregnerf_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     unflatten,
 )
+from dregnerf_tpu_torch.runtime.logging import ScalarLogger
+from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
 OCC_UPDATE_INTERVAL = 16
 OCC_WARMUP_STEPS = 256
@@ -182,6 +187,9 @@ class NGPTrainer:
         self.step = 0
         self._pending_n_samples = None
         self.log_path = os.path.join(self.output_dir, "log.jsonl")
+        self.logger = ScalarLogger(os.path.join(config.out_dir, "logs", config.expname),
+                                   text_path=os.path.join(self.output_dir, "log.txt"),
+                                   enable_tensorboard=config.enable_tensorboard)
 
     # ------------------------------------------------------------------ setup
     def setup_bounding_box(self) -> None:
@@ -292,32 +300,39 @@ class NGPTrainer:
         return metrics
 
     def train(self) -> None:
+        """The step loop under the hang watchdog (a stale heartbeat exits the
+        process with code 86 for a supervisor to resume it; --watchdog_s 0
+        disables it); a step that fails for good saves a checkpoint first.
+        The scalars' host read every n_tensorboard steps also keeps the
+        heartbeat honest: a wedged device blocks there."""
         cfg = self.config
         start = self.load_checkpoint()
         t0 = time.time()
-        for step in range(start, cfg.max_iterations):
-            metrics = self.train_iteration(step)
-            self.step = step + 1
-            if step % cfg.n_tensorboard == 0:
-                self.log_scalars(step, {
-                    "train/loss": float(metrics["loss"]),
-                    "train/psnr": float(metrics["psnr"]),
-                    "train/num_rays": metrics["num_rays"],
-                    "train/n_samples": int(metrics["n_samples"]),
-                    "train/alive_ray_mask": int(metrics["alive_rays"]),
-                    "elapsed_s": time.time() - t0,
-                })
-            if (step + 1) % cfg.n_validation == 0:
-                self.validate(step + 1)
-            if (step + 1) % cfg.n_checkpoint == 0 or step + 1 == cfg.max_iterations:
-                self.save_checkpoint(step + 1)
+        with Watchdog(cfg.watchdog_s, name=cfg.expname) as wd:
+            for step in range(start, cfg.max_iterations):
+                metrics = run_with_retries(lambda: self.train_iteration(step),
+                                           on_failure=lambda exc: self.save_checkpoint(step))
+                self.step = step + 1
+                if step % cfg.n_tensorboard == 0:
+                    self.log_scalars(step, {
+                        "train/loss": float(metrics["loss"]),
+                        "train/psnr": float(metrics["psnr"]),
+                        "train/num_rays": metrics["num_rays"],
+                        "train/n_samples": int(metrics["n_samples"]),
+                        "train/alive_ray_mask": int(metrics["alive_rays"]),
+                        "elapsed_s": time.time() - t0,
+                    })
+                if (step + 1) % cfg.n_validation == 0:
+                    self.validate(step + 1)
+                if (step + 1) % cfg.n_checkpoint == 0 or step + 1 == cfg.max_iterations:
+                    self.save_checkpoint(step + 1)
+                wd.beat()
 
     # ------------------------------------------------------------------ infra
     def log_scalars(self, step: int, scalars: dict) -> None:
-        line = json.dumps({"step": step, **scalars})
-        print(line, flush=True)
+        self.logger.log_scalars(step, scalars)
         with open(self.log_path, "a") as f:
-            f.write(line + "\n")
+            f.write(json.dumps({"step": step, **scalars}) + "\n")
 
     def validate(self, step: int) -> float:
         """PSNR of view 0 of the validation scene (at its time, when the

@@ -18,10 +18,16 @@ there (`device_augment`). `--reg_batch_size` > 1 loops over the pairs of
 a step and takes the gradient of their mean loss (what JAX's vmap
 computes); its metrics are the means, with the first pair's pose error.
 
-Not ported: `--mesh_shape` (the data-parallel step) and `--enable_visdom`
-raise NotImplementedError; the hang watchdog and the retry wrapper of
-train() and tensorboard are not ported and say so once (scalars go to
-log.txt and log.jsonl). ROADMAP.md queue 1 item 5.
+train() runs each step through the retry wrapper (an emergency checkpoint
+on a fatal error) under the hang watchdog (`--watchdog_s`;
+runtime/resilience.py). Scalars go to log.txt and log.jsonl, and with
+`--enable_tensorboard` to a tensorboardX event file under
+<out_dir>/logs/<expname>. `--enable_visdom` starts the live pose viewer
+(utils/pose_server.py) on `--visdom_port`; each validate() pushes the
+first pair it scores.
+
+Not ported: `--mesh_shape` (the data-parallel step) raises
+NotImplementedError (ROADMAP.md queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from dregnerf_tpu_torch.geometry import se3
 from dregnerf_tpu_torch.losses import registration as L
 from dregnerf_tpu_torch.losses.visibility import grid_visibility
 from dregnerf_tpu_torch.models.regtr import NeRFRegTr
+from dregnerf_tpu_torch.runtime.logging import ScalarLogger
+from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
 BATCH_KEYS = ("src_grid", "tgt_grid", "src_mask", "tgt_mask", "pose")
 LOSS_WEIGHTS = {"overlap": 1.0, "nerf_cont": 1.0, "feature": 0.1, "corr": 1.0}
@@ -165,9 +173,6 @@ class RegTrainer:
         if config.mesh_shape:
             raise NotImplementedError("--mesh_shape (the data-parallel registration step) is "
                                       "not ported yet (ROADMAP.md queue 1 item 5)")
-        if config.enable_visdom:
-            raise NotImplementedError("--enable_visdom (the live pose viewer) is not ported "
-                                      "yet (ROADMAP.md queue 1 item 5)")
         self.config = config
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
@@ -200,9 +205,15 @@ class RegTrainer:
 
         self.log_txt = os.path.join(self.output_dir, "log.txt")
         self.log_path = os.path.join(self.output_dir, "log.jsonl")
-        if config.enable_tensorboard:
-            print("[reg_trainer] tensorboard is not ported (ROADMAP.md queue 1 item 5): "
-                  "scalars go to log.txt and log.jsonl", flush=True)
+        self.logger = ScalarLogger(os.path.join(config.out_dir, "logs", config.expname),
+                                   enable_tensorboard=config.enable_tensorboard)
+        self.pose_viz = None
+        if config.enable_visdom:
+            from dregnerf_tpu_torch.utils.pose_server import PoseVizServer
+
+            self.pose_viz = PoseVizServer(port=config.visdom_port)
+            print(f"[reg_trainer] live pose viewer at http://127.0.0.1:{self.pose_viz.port}/",
+                  flush=True)
         self._vis_cache: "OrderedDict[str, object]" = OrderedDict()
         self._vis_cache_size = int(config.vis_cache_size)
         self._vis_static = None  # (model_cfg, rcfg) of the first NeRF checkpoint
@@ -340,10 +351,6 @@ class RegTrainer:
         rng = np.random.default_rng(cfg.seed)
         t0 = time.time()
         score: Optional[float] = None  # no validation yet: never "best"
-        if cfg.watchdog_s:
-            print("[reg_trainer] the hang watchdog (--watchdog_s) and the retry wrapper are "
-                  "not ported (ROADMAP.md queue 1 item 5): a failure stops training",
-                  flush=True)
         bsz = self.batch_size
         if bsz > 1:
             n_pairs = len(self.train_dataset)
@@ -360,36 +367,42 @@ class RegTrainer:
             print(f"[reg_trainer] device-resident grid cache on (<= {self._dev_cache_size} "
                   "blocks, augmentation on the device)", flush=True)
         deadline = self.train_deadline
-        while self.iteration < max_iterations:
-            if deadline is not None and time.time() >= deadline:
-                print(f"[reg_trainer] train deadline reached at iteration {self.iteration}/"
-                      f"{max_iterations}: stopping early", flush=True)
-                break
-            order = rng.permutation(len(self.train_dataset))
-            if bsz > 1:
-                order = order[: len(order) - len(order) % bsz].reshape(-1, bsz)
-            for i in order:
-                if bsz > 1:
-                    metrics = self.train_iteration_batch(
-                        [self.train_dataset[int(j)] for j in i])
-                else:
-                    metrics = self.train_iteration(fetch(int(i)))
-                self.iteration += 1
-                if self.iteration % cfg.n_tensorboard == 0:
-                    self.log_scalars(metrics, time.time() - t0)
-                if self.iteration % cfg.n_validation == 0:
-                    score = self.validate()
-                    if self.on_validate is not None:
-                        try:  # bookkeeping must not stop training
-                            self.on_validate(self.iteration, score)
-                        except Exception as exc:  # noqa: BLE001
-                            print(f"[reg_trainer] on_validate failed: {exc}", flush=True)
-                if self.iteration % cfg.n_checkpoint == 0:
-                    self.save_checkpoint(score)
-                if self.iteration >= max_iterations:
-                    break
+        with Watchdog(cfg.watchdog_s, name=cfg.expname) as wd:
+            while self.iteration < max_iterations:
                 if deadline is not None and time.time() >= deadline:
+                    print(f"[reg_trainer] train deadline reached at iteration "
+                          f"{self.iteration}/{max_iterations}: stopping early", flush=True)
                     break
+                order = rng.permutation(len(self.train_dataset))
+                if bsz > 1:
+                    order = order[: len(order) - len(order) % bsz].reshape(-1, bsz)
+                for i in order:
+                    if bsz > 1:
+                        metrics = run_with_retries(
+                            lambda i=i: self.train_iteration_batch(
+                                [self.train_dataset[int(j)] for j in i]),
+                            on_failure=lambda exc: self.save_checkpoint())
+                    else:
+                        metrics = run_with_retries(
+                            lambda i=i: self.train_iteration(fetch(int(i))),
+                            on_failure=lambda exc: self.save_checkpoint())
+                    self.iteration += 1
+                    if self.iteration % cfg.n_tensorboard == 0:
+                        self.log_scalars(metrics, time.time() - t0)
+                    if self.iteration % cfg.n_validation == 0:
+                        score = self.validate()
+                        if self.on_validate is not None:
+                            try:  # bookkeeping must not stop training
+                                self.on_validate(self.iteration, score)
+                            except Exception as exc:  # noqa: BLE001
+                                print(f"[reg_trainer] on_validate failed: {exc}", flush=True)
+                    if self.iteration % cfg.n_checkpoint == 0:
+                        self.save_checkpoint(score)
+                    if self.iteration >= max_iterations:
+                        break
+                    if deadline is not None and time.time() >= deadline:
+                        break
+                    wd.beat()
         self.save_checkpoint(score)
 
     def validate(self, fraction: float | None = None) -> float:
@@ -406,6 +419,7 @@ class RegTrainer:
         both = hasattr(self.val_dataset, "meta")
         orders = [(0, 1), (1, 0)] if both else [None]
         rres, rtes = [], []
+        viz_pair = None
         for i in ids:
             for order in orders:
                 if order is not None:
@@ -415,16 +429,49 @@ class RegTrainer:
                     batch = self._to_device_cached(item)
                 else:
                     batch = to_device(item, self.device)
-                _, rre, rte = self._eval(batch)
+                pose, rre, rte = self._eval(batch)
+                if viz_pair is None:
+                    viz_pair = (batch, pose)
                 rres.append(float(rre))
                 rtes.append(float(rte))
             if both:
                 self.val_dataset.fixed_order = None
+        if self.pose_viz is not None and viz_pair is not None:
+            self._push_pose_viz(*viz_pair)
         line = (f"[val] iter {self.iteration} RRE {np.mean(rres):.3f} deg (med "
                 f"{np.median(rres):.3f}) RTE {np.mean(rtes):.4f} (med {np.median(rtes):.4f}) "
                 f"over {len(rres)} pairs")
         self._log_line(line)
         return -float(np.mean(rres))
+
+    def _push_pose_viz(self, batch: Dict, pose_pred: torch.Tensor) -> None:
+        """The live registration view: the tgt cloud (gray), the src cloud
+        under the ground-truth transform (blue) and under the prediction
+        (magenta), and the two transforms as frusta joined by their centres'
+        segment. The clouds are the voxel centres of the masks' indices as
+        the masks come, flat [R^3], which is what the JAX package draws."""
+        from dregnerf_tpu_torch.utils.pose_server import point_trace, visualize_cameras
+
+        a = self.aabb.cpu().numpy().reshape(-1)
+        res = self.grid_resolution
+
+        def centers(mask):
+            idx = np.argwhere(mask.cpu().numpy())
+            return (idx + 0.5) / res * (a[3:] - a[:3])[None] + a[:3][None]
+
+        def xf(T, pts):
+            return pts @ T[:3, :3].T + T[:3, 3][None]
+
+        gt = batch["pose"].float().cpu().numpy()
+        pred = pose_pred.float().cpu().numpy()
+        src, tgt = centers(batch["src_mask"]), centers(batch["tgt_mask"])
+        traces = [
+            point_trace(tgt, "#999999", seed=1),
+            point_trace(xf(gt, src), "#4488ff", seed=2),
+            point_trace(xf(pred, src), "#ff44cc", seed=2),
+        ]
+        visualize_cameras(self.pose_viz, self.iteration, poses=[gt, pred], cam_depth=0.15,
+                          colors=("#4488ff", "#ff44cc"), extra_traces=traces)
 
     def _log_line(self, line: str) -> None:
         print(line, flush=True)
@@ -438,6 +485,9 @@ class RegTrainer:
                        + f" | {elapsed:.1f}s")
         with open(self.log_path, "a") as f:
             f.write(json.dumps({"iter": self.iteration, **values, "elapsed": elapsed}) + "\n")
+        if self.logger.writer is not None:
+            for k, v in values.items():
+                self.logger.writer.add_scalar(f"train/{k}", v, self.iteration)
 
     # ----------------------------------------------------------- checkpoints
     def _state_tree(self, flat: torch.Tensor) -> dict:

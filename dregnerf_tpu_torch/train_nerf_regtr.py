@@ -5,12 +5,14 @@ Trains the registration transformer over the scene pairs of
 <root_dir>/<dataset>/nerf_models (the train and test splits of
 objaverse.json), or over the pairs of one scene with --scene. Writes
 <out_dir>/<expname>/model/ (step-stamped, latest and best checkpoints with
-the JAX RegTrainer's keys), log.txt and log.jsonl.
+the JAX RegTrainer's keys), log.txt and log.jsonl; with
+--enable_tensorboard an event file under <out_dir>/logs/<expname>; with
+--enable_visdom the live pose viewer on --visdom_port.
 
 Usage:
   python -m dregnerf_tpu_torch.train_nerf_regtr --dataset objaverse \
       --root_dir <root> --expname <name> [--epochs 80 --lr 1e-4 --robust_loss] \
-      [--no_bf16] [--device cpu]
+      [--enable_tensorboard] [--enable_visdom] [--watchdog_s 1200] [--no_bf16] [--device cpu]
 """
 from __future__ import annotations
 

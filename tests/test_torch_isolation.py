@@ -83,14 +83,16 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-LAZY = ("imageio", "h5py", "PIL")  # image and HDF5 decoding, absent on the card's machine
+# image and HDF5 decoding, plots and tensorboard: absent on the card's machine
+LAZY = ("imageio", "h5py", "PIL", "matplotlib", "tensorboardX")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_sklearn_and_lazy_decoders(path):
     """No port file imports sklearn (the port clusters cameras with its own
-    k-means), and imageio, h5py and PIL are imported only inside the
-    functions that read files, never when a module is imported."""
+    k-means), and imageio, h5py, PIL, matplotlib and tensorboardX are
+    imported only inside the functions that use them, never when a module
+    is imported."""
     tree = ast.parse(path.read_text(), str(path))
     assert "sklearn" not in _imported_roots(path)
     for node in tree.body:  # module-level statements only
@@ -125,6 +127,59 @@ def test_loaders_import_without_decoders():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) in ([0, 0, 0, 1, 1, 1],
                                                               [1, 1, 1, 0, 0, 0])
+
+
+def test_novel_views_run_without_the_optional_packages(tmp_path):
+    """In a process where imageio, matplotlib and tensorboardX cannot be
+    imported: the new modules import, a pair of port-written NGP blocks
+    renders a pair frame on the CPU (PNGs by the port's own writer, depth
+    coloured by its own jet table), and the logger asked for tensorboard
+    says it is unavailable and goes on."""
+    code = (
+        "import json, os, sys\n"
+        "for name in ('imageio', 'matplotlib', 'tensorboardX'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "import dregnerf_tpu_torch.geometry.align, dregnerf_tpu_torch.geometry.rotation\n"
+        "import dregnerf_tpu_torch.runtime.export_torch, dregnerf_tpu_torch.runtime.profiling\n"
+        "import dregnerf_tpu_torch.utils.feature_visualizer, dregnerf_tpu_torch.utils.sampler\n"
+        "from dregnerf_tpu_torch.models import ngp\n"
+        "from dregnerf_tpu_torch.render.novel_views import render_pair_views\n"
+        "from dregnerf_tpu_torch.runtime.checkpoint import save_checkpoint\n"
+        "from dregnerf_tpu_torch.runtime.logging import ScalarLogger\n"
+        "from dregnerf_tpu_torch.utils.png import read_png\n"
+        "from dregnerf_tpu_torch.utils.pose_server import PoseVizServer\n"
+        f"out = {str(tmp_path)!r}\n"
+        "cfg = ngp.NGPConfig(grid=ngp.PackedGridConfig(n_levels=2, log2_table_size=8),\n"
+        "                    hidden_dim=16, compute_dtype=torch.float32)\n"
+        "meta = {'aabb': [-1.0] * 3 + [1.0] * 3, 'contraction_type': 'aabb',\n"
+        "        'render_step_size': 0.3, 'max_march_steps': 8, 'field': 'ngp',\n"
+        "        'model_config': ngp.config_to_meta(cfg)}\n"
+        "paths = []\n"
+        "for k in (0, 1):\n"
+        "    params = ngp.init_ngp(cfg, torch.Generator().manual_seed(k), 'cpu')\n"
+        "    params['table'] = params['table'] * 1000.0\n"
+        "    paths.append(os.path.join(out, f'block_{k}.ckpt'))\n"
+        "    save_checkpoint(paths[-1], {'model': params, 'occupancy': {\n"
+        "        'occs': torch.zeros(16 ** 3), 'binary': torch.ones(16, 16, 16, dtype=torch.bool)}},\n"
+        "        meta)\n"
+        "pose = np.eye(4)[None]\n"
+        "pose[0, :3, 3] = [0.0, 0.0, 3.0]\n"
+        "mp4 = render_pair_views(paths[0], paths[1], pose, np.eye(4), out, 'gt', factor=16,\n"
+        "                        device='cpu')\n"
+        "frame = read_png(os.path.join(out, 'gt_images', 'frame_0000.png'))\n"
+        "ScalarLogger(os.path.join(out, 'tb'), enable_tensorboard=True).log_scalars(1, {'a': 1})\n"
+        "PoseVizServer(port=0).close()\n"
+        "print(json.dumps([list(frame.shape), int((frame < 250).any(-1).sum()),\n"
+        "                  sorted(m for m in ('imageio', 'matplotlib', 'tensorboardX')\n"
+        "                         if sys.modules.get(m) is not None)]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "[logging] tensorboard unavailable:" in out.stdout
+    shape, shaded, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert shape == [50, 200, 3] and shaded > 0 and loaded == []
 
 
 def test_port_reads_its_own_split_jsons():

@@ -2,6 +2,7 @@
 against the JAX package, on the CPU, on a two-block R = 16 fixture scene."""
 import json
 import os
+import shutil
 from types import SimpleNamespace
 
 import jax
@@ -9,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+import eval_nerf_regtr as jax_eval_cli
 from dregnerf_tpu.datasets import register_pairs as jrp
+from dregnerf_tpu.render import novel_views as jnv
 from dregnerf_tpu.runtime import checkpoint as jckpt
 from dregnerf_tpu_torch import eval_nerf_regtr as pev
 from dregnerf_tpu_torch.datasets import register_pairs as prp
@@ -18,6 +21,8 @@ from dregnerf_tpu_torch.io.ply import write_ply
 from dregnerf_tpu_torch.models import regtr as pregtr
 from dregnerf_tpu_torch.runtime.config import config_parser
 from dregnerf_tpu_torch.runtime.reg_trainer import make_reg_model, to_device
+from torch_views_common import assert_pair_frames_match, save_jax_block
+from torch_views_common import jax_hostloop, one_torch_thread  # noqa: F401 (fixtures)
 
 R = 16
 
@@ -271,11 +276,41 @@ def test_eval_cli_icp_refine_polishes_the_pose(scenes, jax_checkpoint, tmp_path)
 
 
 @pytest.mark.parametrize("flag", ["--render_videos"])
-def test_eval_refuses_unported_options(scenes, flag, tmp_path):
+def test_eval_refuses_unported_options(scenes, jax_checkpoint, flag, tmp_path, jax_hostloop,
+                                      one_torch_thread):
+    """The option that once raised here now runs: `--render_videos --device
+    cpu` on the fixture pair with two JAX-written NGP blocks as its NeRFs
+    writes, for gt, aligned and unaligned, the 12 src, tgt and pair frames
+    and the depths that JAX's render_pair_views writes for the same
+    checkpoints, orbit and poses (torch_views_common.assert_pair_frames_match),
+    and the mp4 exactly when ffmpeg is on PATH."""
     root, _, _ = scenes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pev.main(["--root_dir", os.path.join(root, "single"), "--scene", "fixture",
-                  "--out_dir", str(tmp_path), "--device", "cpu", flag])
+    path, _, _ = jax_checkpoint
+    scene_root = tmp_path / "scene"
+    shutil.copytree(os.path.join(root, "single"), scene_root)
+    blocks = [save_jax_block(str(scene_root / "nerf_models" / "fixture" / f"block_{k}" /
+                                 "model.ckpt"), seed=k) for k in (0, 1)]
+    pev.main(["--root_dir", str(scene_root), "--scene", "fixture", "--out_dir",
+              str(tmp_path / "out"), "--expname", "reg", "--ckpt_path", path,
+              "--position_embedding_dim", "64", "--device", "cpu", flag])
+    scene_dir = tmp_path / "out" / "reg" / "eval" / "fixture"
+    with open(scene_dir / "transformation_est.json") as f:
+        written = json.load(f)
+    ds = prp.NeRFRegDataset(str(scene_root), subject_id="fixture", split="test",
+                            seed=config_parser([]).seed)
+    src, tgt = (ds[0][f"{side}_nerf_path"] for side in ("src", "tgt"))
+    assert sorted((src, tgt)) == sorted(blocks)
+    jax_dir = tmp_path / "jax"
+    for tag, transform in (("gt", written["pose_gt"]), ("aligned", written["pose_est"]),
+                           ("unaligned", None)):
+        want = jnv.render_pair_views(src, tgt, jax_eval_cli.RegEvaluator._orbit_poses(),
+                                     None if transform is None else np.asarray(transform),
+                                     str(jax_dir), tag, "objaverse", factor=8)
+        for sub in ("src_images", "tgt_images", "images"):
+            assert len(list((scene_dir / f"{tag}_{sub}").glob("frame_*.png"))) == 12
+        assert (scene_dir / f"{tag}_src_tgt_rgb_depth.mp4").exists() == (want is not None) \
+            == (shutil.which("ffmpeg") is not None)
+        assert_pair_frames_match(str(scene_dir), str(jax_dir), tag, 12)
 
 
 def test_eval_runs_on_cuda_unless_asked_for_the_cpu(scenes, monkeypatch, tmp_path):

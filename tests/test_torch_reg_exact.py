@@ -1,6 +1,7 @@
 """Exact visibility, the trainer's options and the train CLI twin of the
 port on the CPU: labels marched through a tiny NGP block against the JAX
-package's, guarded exact steps, the options that are not ported, and
+package's, guarded exact steps, the options that are not ported or
+invalid, the live pose viewer against JAX's, and
 `python -m dregnerf_tpu_torch.train_nerf_regtr --device cpu`."""
 import json
 import math
@@ -123,18 +124,59 @@ def test_exact_visibility_refuses_a_mixed_fleet(exact_root, tmp_path):
 
 @pytest.mark.parametrize("flags,error", [
     (["--mesh_shape", "2,1"], NotImplementedError),
-    (["--enable_visdom"], NotImplementedError),
     (["--visibility", "exact", "--reg_batch_size", "2"], ValueError)])
 def test_unported_or_invalid_options_raise(pair_root, tmp_path, flags, error):
     with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else "batch"):
         port_trainer(pair_root, str(tmp_path), flags)
 
 
+def test_visdom_pushes_jax_traces(pair_root, tmp_path, monkeypatch):
+    """--enable_visdom (on a free port): validate() pushes the first pair it
+    scores, and /state.json holds what JAX's _push_pose_viz pushes for the
+    same batch, pose and iteration: 3 point clouds, two frustum sets and
+    the centre segment."""
+    import urllib.request
+    from types import SimpleNamespace
+
+    from dregnerf_tpu.utils.pose_server import PoseVizServer
+
+    tr = port_trainer(pair_root, str(tmp_path), ["--enable_visdom", "--visdom_port", "0"])
+    seen = []
+    real = tr._push_pose_viz
+    monkeypatch.setattr(tr, "_push_pose_viz", lambda b, p: (seen.append((b, p)), real(b, p)))
+    tr.iteration = 3
+    try:
+        tr.validate(fraction=1.0)
+        with urllib.request.urlopen(f"http://127.0.0.1:{tr.pose_viz.port}/state.json",
+                                    timeout=10) as r:
+            state = json.loads(r.read())
+    finally:
+        tr.pose_viz.close()
+    assert len(seen) == 1
+    batch, pose = seen[0]
+    jserver = PoseVizServer(port=0)
+    try:
+        jself = SimpleNamespace(aabb=jnp.asarray(tr.config.aabb, jnp.float32),
+                                grid_resolution=tr.grid_resolution, iteration=3,
+                                pose_viz=jserver)
+        JRT.RegTrainer._push_pose_viz(jself, {k: v.numpy() for k, v in batch.items()},
+                                      pose.float().numpy())
+        with urllib.request.urlopen(f"http://127.0.0.1:{jserver.port}/state.json",
+                                    timeout=10) as r:
+            want = json.loads(r.read())
+    finally:
+        jserver.close()
+    assert state == want
+    assert state["step"] == 3
+    assert [t["kind"] for t in state["traces"]] == ["points"] * 3 + ["lines"] * 3
+
+
 def test_train_cli_on_the_cpu(pair_root, tmp_path, capsys, monkeypatch):
     """`python -m dregnerf_tpu_torch.train_nerf_regtr --device cpu` for one
     epoch of the one train pair at the default bf16, with the model factory
     narrowed to the tiny width (the full one is held on the card by
-    chip_smoke.py): a validation, a checkpoint with the JAX keys, both logs."""
+    chip_smoke.py): a validation, a checkpoint with the JAX keys, both logs
+    and, with --enable_tensorboard, an event file under logs/cli."""
     from dregnerf_tpu_torch import train_nerf_regtr
     from dregnerf_tpu_torch.models.regtr import NeRFRegTr
 
@@ -154,7 +196,10 @@ def test_train_cli_on_the_cpu(pair_root, tmp_path, capsys, monkeypatch):
         assert made == [torch.bfloat16] and tr.model.dtype == torch.bfloat16
         assert tr.iteration == 1 and tr.device.type == "cpu"
         out = capsys.readouterr().out
-        assert "tensorboard is not ported" in out and "[val] iter 1" in out
+        assert "[val] iter 1" in out and "not ported" not in out
+        tr.logger.close()  # flushes the writer's queue
+        events = list((tmp_path / "logs" / "cli").glob("events.out.tfevents.*"))
+        assert len(events) == 1 and events[0].stat().st_size > 0
         flat, meta = load_checkpoint(str(tmp_path / "cli" / "model" / "model.ckpt"))
         assert meta["step"] == 1 and "_score" in meta
         assert "optimizer::1/0/mu/model/decoder/q_proj/kernel" in flat
