@@ -62,6 +62,17 @@ Phases, in order; any failure exits non-zero:
      against the CPU (equal samples, t_start within 1e-6), each one's
      cumsum timed; MARCH_STEPS full-width steps under each and
      under `capped` (finite losses, K1p and K2p 4 launches a step);
+  9b. the fleet (`fleet`): the fixture's two k-means blocks trained
+     together on the card through train_ngp_nerf.train_fleet (--multi_blocks
+     --fleet) at SHAPE_FLAGS, FLEET_STEPS fleet steps at the CLI defaults:
+     K1p and K2p 4 launches in every block-step, K2p bit for bit against
+     index_select on each level's call of step 1 of block 0, each block's
+     first step held against one NGPTrainer step from the same state on the
+     same draws (loss 1e-3 relative, the table gradient within
+     GRAD_NORM_TOL of its norm, MLP gradients within GRAD_NORM_TOL of their
+     max), ms a fleet step and a
+     block-step, the idle share of 8 profiled fleet steps, each block's val
+     PSNR and checkpoint read back bit for bit;
  10. stage 3 on the grid that phase 6 extracted on the card: a two-block
      scene (the block, and a copy whose occupied xyz a known SE(3) moves),
      loaded through NeRFRegDataset; seeded flax-layout weights saved as a
@@ -96,6 +107,24 @@ Phases, in order; any failure exits non-zero:
      index_select on the path's own inputs, and timed alone against its
      bytes bound from its distinct rows), their labels against the
      voxel-mask labels and K2p in the profiler;
+ 12b. the mesh (`mesh`), parallel/ at world size 1 under NCCL (a file://
+     store in the temporary directory): the stage-1 DP step at full width
+     against step_loss on the same draws (samples equal, loss within
+     MESH_LOSS_REL, the gradients as the fleet's first step), the sharded
+     surface pass on MESH_SURFACE_POINTS voxels
+     of the multi-block phase's block 0 against compute_surface_mask
+     (equal), sharded_attention at 2048 tokens against the plain formula
+     (equal) and a full-width registration DP step in f32 (cuDNN TF32
+     off) against the trainer's single-pair step (its gradient within
+     REG_STEP_TOL's grad_norm_rel, the update Adam's on it bit for bit);
+     then two ranks under gloo on cuda:0
+     (NCCL refuses two ranks on one card): MESH_DP_STEPS stage-1 DP steps
+     and one f32 registration DP step, each step's mean gradient held
+     against the mean-of-shards one computed in this process on the
+     ranks' draws and pairs at the same parameters, the parameters Adam's
+     steps on the ranks' gradients bit for bit, and the two ranks equal
+     bit for bit (checksums after an all_gather). K1p/K2p launches are
+     counted around each DP step and the surface pass (4/4 a DP step);
  13. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
@@ -199,6 +228,20 @@ MB_FRAME_RADIUS = 3.0
 MB_FRAME_SHARE = 0.3
 MB_SWAPPED_SHARE = 0.2
 MARCH_STEPS = 8  # full-width steps under each training marcher
+FLEET_STEPS = 256  # fleet steps of the two-block fleet (every block-step K1p/K2p 4/4)
+# two full-width steps' gradients on the card from the same state on the
+# same draws (_grads_agree): the table gradient within GRAD_NORM_TOL of the
+# reference's norm, each MLP leaf within GRAD_NORM_TOL of its max (the
+# reference phase's bf16 tolerance). The mesh phase holds each of the two
+# gloo ranks' MESH_DP_STEPS mean gradients so against the one-process
+# mean-of-shards gradient at the same parameters, and the ranks' losses
+# within 1e-6 relative of it; the registration DP steps' gradients within
+# REG_STEP_TOL's grad_norm_rel of the norm
+GRAD_NORM_TOL = 1e-2
+MESH_LOSS_REL = 1e-5  # one full-width step's loss repeats on the card to 1e-7, not bit for bit
+MESH_DP_STEPS = 3
+MESH_SURFACE_POINTS = 8192
+MESH_RANK_TIMEOUT_S = 420
 N_ROWS, WIDTH = 1 << 18, 64  # rows of one encoder level's gather or scatter a step
 # (table rows, run length of equal slots) of the four encoder levels of a
 # step: a ray's steps per cell at each level (1024 steps over a 2-unit box)
@@ -616,18 +659,10 @@ def reference_phase(torch, dev, defaults: bool) -> None:
     worst, table_ratio = 0.0, None
     for i, (a, b) in enumerate(zip(g0, g1)):
         if defaults and i == 0:
-            tols = []
-            for level in range(grid_cfg.n_levels):
-                slot, gl, rows = seen["cpu"][level]
-                k = torch.bincount(slot, minlength=rows).float()[:, None]
-                tols.append((k + 1.0) * 2.0**-7
-                            * torch.zeros(rows, gl.shape[1]).index_add_(0, slot, gl.abs()))
-            vt = torch.zeros(grid_cfg.total_rows, grid_cfg.n_features, requires_grad=True)
-            sum((p * t).sum() for p, t in zip(packed_grid.pack_table(vt, grid_cfg),
-                                              tols)).backward()
+            bound = _bf16_table_bound(torch, packed_grid, grid_cfg, seen["cpu"])
             err = (a - b).abs()
-            check(bool((err <= vt.grad).all()), "reference: table gradient over the bf16 bound")
-            table_ratio = (err / vt.grad.clamp(min=1e-30)).max().item()
+            check(bool((err <= bound).all()), "reference: table gradient over the bf16 bound")
+            table_ratio = (err / bound.clamp(min=1e-30)).max().item()
             continue
         err = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
         worst = max(worst, err)
@@ -1335,6 +1370,652 @@ def marcher_phase(torch, grid, out_dir: str) -> dict:
               f"{[round(x, 5) for x in losses]}; launches a step {per_step}", flush=True)
         del trainer
         torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_table_bound(torch, packed_grid, grid_cfg, levels: dict):
+    """Per vertex-table entry, the bound of the difference of two
+    bf16-accumulated table gradients of the same rows: a packed slot hit k
+    times by rows g differs by at most (k + 1) 2^-7 sum|g| (k roundings of
+    the adds and of the addends, whose cotangents may round to neighbouring
+    bf16 values), carried to the vertex table through pack_table. `levels`:
+    {level: (slot, g, table_rows)} of one run's scatters."""
+    tols = []
+    for level in range(grid_cfg.n_levels):
+        slot, gl, rows = levels[level]
+        slot, gl = slot.cpu(), gl.float().cpu()
+        k = torch.bincount(slot, minlength=rows).float()[:, None]
+        tols.append((k + 1.0) * 2.0**-7
+                    * torch.zeros(rows, gl.shape[1]).index_add_(0, slot, gl.abs()))
+    vt = torch.zeros(grid_cfg.total_rows, grid_cfg.n_features, requires_grad=True)
+    sum((p * t).sum() for p, t in zip(packed_grid.pack_table(vt, grid_cfg), tols)).backward()
+    return vt.grad
+
+
+def _grads_agree(torch, packed_grid, grid_cfg, got: list, want: list, levels: list,
+                 label: str) -> dict:
+    """Two full-width steps' gradients on the card, from the same state on
+    the same draws. The card's backward is not deterministic: two runs of
+    one step give the same loss and samples but cotangents up to about
+    1.5e-10 apart (the compositor's atomics), so the per-slot bf16 bound of
+    _bf16_table_bound holds on all but the slots of the smallest sums.
+    Required: the table gradient within GRAD_NORM_TOL of the reference's
+    norm, and every MLP leaf within GRAD_NORM_TOL of its max (the reference
+    phase's bf16 tolerance); the entries over the bf16 bound (the mean of
+    the bounds of `levels`, each one run's scatters, as many as the
+    gradient averages) are counted."""
+    bound = sum(_bf16_table_bound(torch, packed_grid, grid_cfg, lv) for lv in levels) / len(levels)
+    a, b = got[0].float().cpu(), want[0].float().cpu()
+    err = (a - b).abs()
+    norm = (err.norm() / b.norm().clamp(min=1e-30)).item()
+    check(norm <= GRAD_NORM_TOL, f"{label}: table gradient {norm} of its norm apart")
+    mlp = 0.0
+    for x, y in zip(got[1:], want[1:]):
+        scale = max(y.abs().max().item(), 1e-30)
+        mlp = max(mlp, (x.float().cpu() - y.float().cpu()).abs().max().item() / scale)
+    check(mlp <= GRAD_NORM_TOL, f"{label}: MLP gradient rel err {mlp}")
+    return {"table_rel_norm": norm, "over_bf16_bound": int((err > bound).sum()),
+            "entries": err.numel(), "mlp_rel_err": mlp}
+
+
+def fleet_phase(torch, out_dir: str) -> dict:
+    """The fleet (see the module docstring, phase 9b): the fixture's two
+    k-means blocks trained together on the card through
+    train_ngp_nerf.train_fleet (what train() runs under --multi_blocks
+    --fleet; the on-disk loader needs imageio, which the card's machine
+    lacks, so the blocks are made in memory as in the multi-block phase)."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets import objaverse
+    from dregnerf_tpu_torch.datasets.base import make_blocks
+    from dregnerf_tpu_torch.datasets.fixtures import render_views
+    from dregnerf_tpu_torch.models import ngp
+    from dregnerf_tpu_torch.ops import packed_grid
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+    from dregnerf_tpu_torch.parallel import fleet as pfleet
+    from dregnerf_tpu_torch.runtime import fleet_trainer
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.ngp_trainer import (
+        NGPTrainer,
+        OCC_UPDATE_INTERVAL,
+        draw_step_inputs,
+        step_loss,
+    )
+    from dregnerf_tpu_torch.train_ngp_nerf import train_fleet
+
+    subject = "fixture_fleet"
+    data_dir = os.path.join(out_dir, "images", subject)
+    os.makedirs(data_dir)
+    images, c2w = render_views(36, 128)
+    K = objaverse.intrinsics(128, 128, 0.9)
+    splits = {split: make_blocks(data_dir, images, c2w.astype(np.float32)[:, :3, :4], K, split,
+                                 2, objaverse.VAL_INTERVAL, objaverse.OPENGL,
+                                 objaverse.SYNTHETIC, subject)
+              for split in ("train", "test")}
+    cfg = config_parser(SHAPE_FLAGS + [
+        "--root_dir", os.path.join(out_dir, "images"), "--scene", subject, "--out_dir",
+        os.path.join(out_dir, "fleet_models"), "--expname", subject, "--multi_blocks",
+        "--fleet", "--max_iterations", str(FLEET_STEPS), "--n_tensorboard",
+        str(FLEET_STEPS // 4)])
+
+    # record each block-step (launches, CUDA events), the first step's
+    # state, draws and gradients, and block 0's K2p calls at step 1
+    real_block_step, real_fleet_step = pfleet.block_step, fleet_trainer.fleet_train_step
+    real_gather = packed_grid.gather_rows
+    block_rec, fleet_rec, first, k2p_calls, current = [], [], {}, [], [None]
+
+    def gather(table, idx):
+        out = real_gather(table, idx)
+        if current[0] == (1, 0) and len(k2p_calls) < MB_LEVELS:
+            k2p_calls.append((tuple(table.shape), int(idx.numel()),
+                              torch.equal(out, gather_rows_plain(table, idx))))
+        return out
+
+    def block_step(trainer, step, num_rays, draws=None):
+        k = fleet_index[id(trainer)]
+        if step == 0:
+            scene = trainer.scene
+            draws = draw_step_inputs(trainer.generator, num_rays, scene.num_images,
+                                     scene.height, scene.width, trainer.device)
+            rec = first[k] = {
+                "params": {n: ([w.detach().clone() for w in v] if isinstance(v, list)
+                               else v.detach().clone()) for n, v in trainer.params.items()},
+                "grid": type(trainer.grid)(*(t.clone() for t in trainer.grid)),
+                "draws": draws}
+            real_apply = trainer.apply_gradients
+
+            def apply(i):
+                rec["grads"] = [p.grad.detach().clone() for p in ngp.parameters(trainer.params)]
+                trainer.apply_gradients = real_apply
+                real_apply(i)
+
+            trainer.apply_gradients = apply
+        current[0] = (step, k)
+        before = (scatter_add_bf16.launches, gather_rows.launches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            out = real_block_step(trainer, step, num_rays, draws)
+        finally:
+            current[0] = None
+        end.record()
+        if step == 0:
+            first[k]["loss"] = out["loss"]
+        block_rec.append((step, k, scatter_add_bf16.launches - before[0],
+                          gather_rows.launches - before[1], start, end))
+        return out
+
+    def fleet_step(trainers, step, num_rays, draws=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_fleet_step(trainers, step, num_rays, draws)
+        end.record()
+        fleet_rec.append((step, start, end))
+        return out
+
+    real_init = NGPTrainer.__init__
+    fleet_index = {}
+
+    def init(self, *args, **kwargs):  # number the blocks' trainers as they are built
+        real_init(self, *args, **kwargs)
+        fleet_index[id(self)] = len(fleet_index)
+
+    NGPTrainer.__init__ = init
+    pfleet.block_step, fleet_trainer.fleet_train_step = block_step, fleet_step
+    packed_grid.gather_rows = gather
+    _reset_kernel_launches()
+    try:
+        t0 = time.perf_counter()
+        fleet = train_fleet(cfg, splits["train"], splits["test"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        NGPTrainer.__init__ = real_init
+        pfleet.block_step, fleet_trainer.fleet_train_step = real_block_step, real_fleet_step
+        packed_grid.gather_rows = real_gather
+    launches = _kernel_launches()
+    trainers = fleet.trainers
+    check(len(trainers) == 2 and all(t.device.type == "cuda" for t in trainers)
+          and fleet.blocks == [0, 1], f"fleet: blocks {fleet.blocks} on the card")
+    check(launches["scatter_add"] == 0, "K1 ran in the fleet at the CLI defaults")
+    bad = [(s, k, a, b) for s, k, a, b, _, _ in block_rec if (a, b) != (4, 4)]
+    check(len(block_rec) == 2 * FLEET_STEPS and not bad,
+          f"fleet: {len(block_rec)} block-steps, K1p/K2p launches other than (4, 4): {bad[:8]}")
+    check(len(k2p_calls) == MB_LEVELS and all(eq for _, _, eq in k2p_calls),
+          f"fleet: K2p against index_select at step 1 of block 0: {k2p_calls}")
+    quiet = [r for r in fleet_rec if r[0] % OCC_UPDATE_INTERVAL and r[0] >= FLEET_STEPS // 2]
+    fleet_ms = statistics.mean(a.elapsed_time(b) for _, a, b in quiet)
+    block_ms = statistics.mean(a.elapsed_time(b) for s, _, _, _, a, b in block_rec
+                               if s % OCC_UPDATE_INTERVAL and s >= FLEET_STEPS // 2)
+
+    # each block's first step against one NGPTrainer step from the same
+    # state on the same draws (the reference phase's defaults tolerance)
+    first_step = []
+    for k, t in enumerate(trainers):
+        rec = first[k]
+        params = {n: ([w.clone().requires_grad_(True) for w in v] if isinstance(v, list)
+                      else v.clone().requires_grad_(True)) for n, v in rec["params"].items()}
+        seen = {}
+        real = _record_scatters(packed_grid, seen)
+        try:
+            loss, _ = step_loss(params, t.model_config, t.render_config, rec["grid"], t.aabb,
+                                t.images, t.c2ws, t.K, rec["draws"], t.scene.synthetic,
+                                t.scene.opengl)
+            loss.backward()
+        finally:
+            packed_grid.level_backward = real
+        l0, l1 = loss.item(), rec["loss"].item()
+        check(math.isclose(l0, l1, rel_tol=1e-3), f"fleet block {k}: first loss {l1} vs {l0}")
+        agree = _grads_agree(torch, packed_grid, t.model_config.grid, rec["grads"],
+                             [p.grad for p in ngp.parameters(params)], [seen["cuda"]],
+                             f"fleet block {k} step 0")
+        first_step.append({"loss": l1, "reference_loss": l0, **agree})
+    del first
+
+    blocks = []
+    for k, t in enumerate(trainers):
+        _check_checkpoint_round_trip(torch, t, FLEET_STEPS)
+        blocks.append({"val_psnr": fleet.val_psnr[k], "first_step": first_step[k]})
+        check(math.isfinite(fleet.val_psnr[k]), f"fleet block {k}: val psnr {fleet.val_psnr[k]}")
+    busy_ms, _, _, profiled_ms = profiled(
+        torch, lambda: [pfleet.fleet_train_step(trainers, s, cfg.init_num_rays)
+                        for s in range(FLEET_STEPS + 1, FLEET_STEPS + 1 + PROFILE_STEPS)],
+        PROFILE_STEPS, f"fleet profile: fleet steps {FLEET_STEPS + 1}-"
+        f"{FLEET_STEPS + PROFILE_STEPS}", "fleet step")
+    out = {"fleet_ms": fleet_ms, "block_ms": block_ms, "busy_ms": busy_ms,
+           "profiled_ms": profiled_ms, "idle_share": 1 - busy_ms / fleet_ms, "wall_s": wall,
+           "launches": launches, "blocks": blocks, "k2p_checked": k2p_calls}
+    print(f"fleet: {FLEET_STEPS} fleet steps of 2 blocks at {cfg.init_num_rays} rays a block "
+          f"in {wall:.3f} s wall (with the checkpoints and the validations); fleet steps "
+          f"{FLEET_STEPS // 2}-{FLEET_STEPS - 1} without an occupancy update "
+          f"{fleet_ms:.3f} ms/fleet step, {block_ms:.3f} ms/block-step (CUDA events); device "
+          f"busy {busy_ms:.3f} ms/fleet step (profiled), idle share {out['idle_share']:.4f}; "
+          f"val psnr {[round(b['val_psnr'], 3) for b in blocks]}; K1p/K2p 4/4 in each of "
+          f"{len(block_rec)} block-steps, launches {launches}; K2p bit for bit against "
+          f"index_select at step 1 of block 0 on {[(s, n) for s, n, _ in k2p_calls]}; "
+          f"first step against NGPTrainer's: {first_step}; checkpoints read back bit for bit",
+          flush=True)
+    return out
+
+
+def _set_opt_state(trainer, state: list) -> None:
+    """The registration trainer's state back to _opt_state's copies."""
+    opt = trainer.optimizer
+    for x, y in zip((opt.flat, opt.mu, opt.nu, opt.count, opt.schedule_count), state):
+        x.copy_(y)
+
+
+def _spy_reg_steps(trainer) -> list:
+    """Records (flat gradient, total) of every update of the registration
+    trainer's optimizer, in the list returned."""
+    seen, real = [], trainer.optimizer.step
+
+    def step(grad, loss):
+        seen.append((grad.detach().clone(), loss.detach().clone()))
+        return real(grad, loss)
+
+    trainer.optimizer.step = step
+    return seen
+
+
+def _rel_norm(torch, got, want) -> float:
+    """|got - want| / |want|, in float64."""
+    got, want = got.double(), want.double().to(got.device)
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+
+
+def _snapshot_params(trainer) -> list:
+    from dregnerf_tpu_torch.models import ngp
+
+    return [p.detach().clone() for p in ngp.parameters(trainer.params)]
+
+
+def _bits_checksum(torch, tensors) -> "torch.Tensor":
+    """An int64 checksum of the tensors' bits (f32 words summed)."""
+    return sum(t.detach().float().reshape(-1).view(torch.int32).to(torch.int64).sum()
+               for t in tensors).reshape(1)
+
+
+def mesh_world1_phase(torch, out_dir: str, block_dir: str, root: str, subject: str) -> dict:
+    """The mesh (see the module docstring, phase 12b), first at world size 1
+    under NCCL: the stage-1 DP step, a chunk of the sharded surface pass,
+    the registration DP step and sharded_attention against their one-device
+    paths on the same inputs."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.extract.sample_grid import (
+        compute_surface_mask,
+        extraction_render_config,
+        occupied_voxel_points,
+    )
+    from dregnerf_tpu_torch.models import ngp
+    from dregnerf_tpu_torch.ops import packed_grid
+    from dregnerf_tpu_torch.parallel.mesh import make_mesh
+    from dregnerf_tpu_torch.parallel.ngp_dp import dp_train_step
+    from dregnerf_tpu_torch.parallel.regtr_dp import dp_reg_step
+    from dregnerf_tpu_torch.parallel.sp_attention import sharded_attention
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.ngp_trainer import (
+        NGPTrainer,
+        draw_step_inputs,
+        load_field_from_checkpoint,
+        step_loss,
+    )
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, to_device
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(out_dir, 'nccl_store')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        check(mesh.device == torch.device("cuda", 0) and dist.get_backend() == "nccl",
+              f"mesh {mesh}, backend {dist.get_backend()}")
+
+        # stage 1 at full width: the DP step against step_loss on the same draws
+        scene, _ = _scenes()
+        trainer = NGPTrainer(config_parser(SHAPE_FLAGS + ["--expname", "chip_smoke_mesh",
+                                                          "--out_dir", out_dir]), scene)
+        trainer.update_occupancy(0)
+        draws = draw_step_inputs(trainer.generator, trainer.num_rays, scene.num_images,
+                                 scene.height, scene.width, trainer.device)
+        runs = {}
+        for name in ("single", "dp"):
+            seen = {}
+            real = _record_scatters(packed_grid, seen)
+            try:
+                if name == "single":
+                    loss, m = step_loss(trainer.params, trainer.model_config,
+                                        trainer.render_config, trainer.grid, trainer.aabb,
+                                        trainer.images, trainer.c2ws, trainer.K, draws, True,
+                                        True)
+                    loss.backward()
+                    m["loss"] = loss.detach()
+                else:
+                    _reset_kernel_launches()
+                    m = dp_train_step(mesh, trainer.params, trainer.model_config,
+                                      trainer.render_config, trainer.grid, trainer.aabb,
+                                      trainer.images, trainer.c2ws, trainer.K, draws)
+                    dp_launches = _kernel_launches()
+            finally:
+                packed_grid.level_backward = real
+            runs[name] = (m, [p.grad.clone() for p in ngp.parameters(trainer.params)],
+                          seen["cuda"])
+            trainer.optimizer.zero_grad(set_to_none=True)
+        (ms, gs, seen_s), (md, gd, _) = runs["single"], runs["dp"]
+        check(int(ms["n_samples"]) == int(md["n_samples"]) > 0
+              and math.isclose(ms["loss"].item(), md["loss"].item(), rel_tol=MESH_LOSS_REL),
+              f"mesh DP step: loss {ms['loss'].item()} / {md['loss'].item()}, samples "
+              f"{int(ms['n_samples'])} / {int(md['n_samples'])}")
+        check(dp_launches == {"scatter_add": 0, "scatter_add_bf16": MB_LEVELS,
+                               "gather_rows": MB_LEVELS},
+              f"mesh DP step: launches {dp_launches}, not K1p/K2p {MB_LEVELS}/{MB_LEVELS}")
+        out["dp_step"] = {"loss": md["loss"].item(), "single_loss": ms["loss"].item(),
+                          "n_samples": int(md["n_samples"]), "launches": dp_launches,
+                          **_grads_agree(torch, packed_grid, trainer.model_config.grid, gd, gs,
+                                         [seen_s], "mesh DP step")}
+        del trainer, runs, gs, gd, seen_s
+
+        # a chunk of the sharded surface pass against compute_surface_mask
+        params, grid, meta, model_cfg, _ = load_field_from_checkpoint(
+            os.path.join(block_dir, "model", "model.ckpt"))
+        aabb = torch.as_tensor(meta["aabb"], dtype=torch.float32, device="cuda")
+        rcfg = extraction_render_config(meta)
+        points, _ = occupied_voxel_points(grid, aabb, rcfg.contraction,
+                                          torch.Generator().manual_seed(0))
+        points = points[:MESH_SURFACE_POINTS]
+        cams = np.asarray(meta["camera_poses"], np.float32)
+        scores = [compute_surface_mask(params, model_cfg, grid, aabb, rcfg, points, cams,
+                                       return_scores=True)]
+        _reset_kernel_launches()
+        scores.append(compute_surface_mask(params, model_cfg, grid, aabb, rcfg, points, cams,
+                                           return_scores=True, mesh=mesh))
+        surface_launches = _kernel_launches()
+        check(np.array_equal(scores[0], scores[1]),
+              f"mesh surface pass: {np.abs(scores[0] - scores[1]).max()} off")
+        # one density query (a K2p launch a level) for each chunk of
+        # compute_surface_mask's default 2^17 // 64 rays and each camera
+        calls = -(-len(points) // ((1 << 17) // 64)) * len(cams)
+        check(surface_launches == {"scatter_add": 0, "scatter_add_bf16": 0,
+                                   "gather_rows": MB_LEVELS * calls},
+              f"mesh surface pass: launches {surface_launches}, {calls} density queries")
+        out["surface"] = {"points": len(points), "cameras": len(cams),
+                          "surface": int((scores[0] >= 0.5).sum()),
+                          "launches": surface_launches}
+        del params, grid
+
+        # sharded_attention against the plain formula, at the model's width
+        g = torch.Generator(device="cuda").manual_seed(3)
+        n, d, heads = 2048, 256, 8
+        q, k, v = (torch.randn(n, d, generator=g, device="cuda") for _ in range(3))
+        qv, kv = torch.arange(n, device="cuda") < 1500, torch.arange(n, device="cuda") < 1200
+        got = sharded_attention(mesh, q, k, v, qv, kv, heads)
+        dh = d // heads
+        qh, kh, vh = (x.reshape(n, heads, dh).transpose(0, 1)[None] for x in (q, k, v))
+        logits = (qh @ kh.transpose(-1, -2)) / torch.full((1,), math.sqrt(dh), device="cuda")
+        logits = torch.where(kv[None, None, None, :], logits, -1e9)
+        want = (torch.softmax(logits, -1) @ vh)[0].transpose(0, 1).reshape(n, d) * qv[:, None]
+        check(torch.equal(got, want), "mesh sharded_attention != local attention")
+        out["attention"] = {"tokens": n, "equal": True}
+
+        # the registration DP step against the trainer's single-pair step, in
+        # f32 with cuDNN's TF32 off (as the register-train phase's parity
+        # step: two bf16 forwards of one pair differ by up to 1.5e-3 in their
+        # losses on the card)
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = config_parser(["--root_dir", root, "--scene", subject, "--out_dir", out_dir,
+                             "--expname", "chip_smoke_mesh_reg", "--no_bf16"])
+        train_ds = NeRFRegDataset(root, subject_id=subject, split="train", seed=cfg.seed)
+        reg = RegTrainer(cfg, train_ds, [])
+        batch = to_device(train_ds[0], reg.device)
+        opt = reg.optimizer
+        state = _opt_state(reg)
+        seen = _spy_reg_steps(reg)
+        single = {k: float(v) for k, v in reg._step([batch]).items()}
+        _set_opt_state(reg, state)
+        dp = {k: float(v) for k, v in dp_reg_step(mesh, reg, batch).items()}
+        grad_rel = _rel_norm(torch, seen[1][0], seen[0][0])
+        rel = max(abs(dp[k] - single[k]) / max(abs(single[k]), 1e-12) for k in LOSS_NAMES)
+        check(dp["skipped_nonfinite"] == single["skipped_nonfinite"] == 0.0
+              and int(opt.count) == 1, f"mesh RegTr step: {dp}")
+        check(grad_rel <= REG_STEP_TOL["grad_norm_rel"] and rel <= REG_STEP_TOL["losses_rel"],
+              f"mesh RegTr step: gradients {grad_rel} of the norm apart, losses {rel} relative")
+        # the update is Adam's on the reduced gradient, from the same state
+        after = opt.flat.clone()
+        _set_opt_state(reg, state)
+        opt.step(*seen[1])
+        check(torch.equal(opt.flat, after), "mesh RegTr step: the update is not the optimizer's "
+              "on the DP step's gradient")
+        out["reg_step"] = {"grad_rel_norm": grad_rel, "losses_rel": rel, "total": dp["total"]}
+        del reg, state, after, batch, seen
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"mesh [world 1, NCCL]: DP step against step_loss on the same "
+          f"{out['dp_step']['n_samples']} samples: loss within {MESH_LOSS_REL} relative, "
+          f"gradients and launches {out['dp_step']}; surface pass over "
+          f"{out['surface']['points']} voxels x {out['surface']['cameras']} cameras equal "
+          f"({out['surface']['surface']} at S >= 0.5)"
+          f", K2p launches {surface_launches}; sharded_attention on {n} tokens equal; RegTr DP "
+          f"step: gradient within {out['reg_step']['grad_rel_norm']:.3e} of the single-pair "
+          f"step's norm, losses within {out['reg_step']['losses_rel']:.2e} relative, the update "
+          f"Adam's on it bit for bit", flush=True)
+    return out
+
+
+def _mesh_rank(rank: int, store: str, root: str, subject: str, out_dir: str) -> None:
+    """A rank of the two-rank gloo run on cuda:0 (mesh_phase): MESH_DP_STEPS
+    stage-1 DP steps at full width, then one registration DP step. Writes
+    to out_dir/rank_<rank>.pt its draws, each DP step's kernel launches
+    (the counts set to 0 just before the step and read just after), the
+    losses and the checksums of the parameters after an all_gather; rank 0
+    also each step's mean gradient and the parameters, and the registration
+    step's reduced gradient, total and parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.models import ngp
+    from dregnerf_tpu_torch.parallel import ngp_dp
+    from dregnerf_tpu_torch.runtime import ngp_trainer
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
+    try:
+        scene, _ = _scenes()
+        trainer = ngp_trainer.NGPTrainer(config_parser(SHAPE_FLAGS + [
+            "--expname", f"chip_smoke_mesh_rank{rank}", "--out_dir", out_dir,
+            "--mesh_shape", "2"]), scene)
+        mesh = trainer.mesh
+        draws, metrics, grads, launches = [], [], [], []
+        real_draw, real_dp = ngp_trainer.draw_step_inputs, ngp_dp.dp_train_step
+
+        def draw(*args, **kwargs):
+            d = real_draw(*args, **kwargs)
+            draws.append([t.cpu() for t in d])
+            return d
+
+        def dp_step(*args, **kwargs):
+            _reset_kernel_launches()
+            out = real_dp(*args, **kwargs)
+            launches.append(_kernel_launches())
+            return out
+
+        real_apply = trainer.apply_gradients
+
+        def apply(step):
+            if rank == 0:
+                grads.append([p.grad.cpu() for p in ngp.parameters(trainer.params)])
+            real_apply(step)
+
+        ngp_trainer.draw_step_inputs, ngp_dp.dp_train_step = draw, dp_step
+        trainer.apply_gradients = apply
+        try:
+            for step in range(MESH_DP_STEPS):
+                m = trainer.train_iteration(step)
+                metrics.append({k: float(m[k]) for k in ("loss", "n_samples", "alive_rays")})
+        finally:
+            ngp_trainer.draw_step_inputs, ngp_dp.dp_train_step = real_draw, real_dp
+        params = _snapshot_params(trainer)
+        sums = mesh.all_gather_rows(_bits_checksum(torch, params)).cpu().tolist()
+        del trainer
+
+        torch.backends.cudnn.allow_tf32 = False  # f32, as mesh_world1_phase's RegTr step
+        cfg = config_parser(["--root_dir", root, "--scene", subject, "--out_dir", out_dir,
+                             "--expname", f"chip_smoke_mesh_reg{rank}", "--mesh_shape", "2",
+                             "--no_bf16"])
+        ds = NeRFRegDataset(root, subject_id=subject, split="train", seed=cfg.seed)
+        reg = RegTrainer(cfg, ds, [])
+        seen = _spy_reg_steps(reg)
+        items = [ds[0], ds[0]]  # the step's pairs: every rank fetches both, in this order
+        reg_metrics = {k: float(v) for k, v in reg.train_iteration(items[rank]).items()}
+        reg_sums = mesh.all_gather_rows(_bits_checksum(torch, [reg.optimizer.flat])).cpu().tolist()
+        out = {"draws": draws, "metrics": metrics, "launches": launches, "sums": sums,
+               "reg_metrics": reg_metrics, "reg_sums": reg_sums, "device": str(mesh.device),
+               "backend": dist.get_backend()}
+        if rank == 0:
+            out.update(grads=grads, params=[p.cpu() for p in params],
+                       reg_grad=seen[0][0].cpu(), reg_total=seen[0][1].cpu(),
+                       reg_flat=reg.optimizer.flat.cpu())
+        torch.save(out, os.path.join(out_dir, f"rank_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, out_dir: str, block_dir: str, root: str, subject: str) -> dict:
+    """Phase 12b: mesh_world1_phase, then two ranks under gloo on cuda:0 (NCCL
+    refuses two ranks on one card), held against the mean-of-shards steps
+    computed here in one process on the ranks' own draws and pairs."""
+    import dataclasses
+    import multiprocessing
+
+    from dregnerf_tpu_torch.datasets.register_pairs import NeRFRegDataset
+    from dregnerf_tpu_torch.models import ngp
+    from dregnerf_tpu_torch.ops import packed_grid
+    from dregnerf_tpu_torch.runtime.config import config_parser
+    from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer, StepDraws, step_loss
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, to_device
+
+    out = mesh_world1_phase(torch, out_dir, block_dir, root, subject)
+    ranks_dir = os.path.join(out_dir, "mesh_ranks")
+    os.makedirs(ranks_dir)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, os.path.join(ranks_dir, "store"), root,
+                                                   subject, ranks_dir)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(MESH_RANK_TIMEOUT_S)
+    finally:
+        hung = [p.is_alive() for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not any(hung) and all(p.exitcode == 0 for p in procs),
+          f"mesh ranks: hung {hung}, exit codes {[p.exitcode for p in procs]}")
+    ranks_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(ranks_dir, f"rank_{r}.pt"), weights_only=False)
+           for r in range(2)]
+    check(all(r["device"] == "cuda:0" and r["backend"] == "gloo" for r in res),
+          f"mesh ranks on {[(r['device'], r['backend']) for r in res]}")
+    check(res[0]["sums"] == res[1]["sums"] and res[0]["sums"][0] == res[0]["sums"][1]
+          and res[0]["reg_sums"][0] == res[0]["reg_sums"][1] and res[0]["reg_sums"]
+          == res[1]["reg_sums"], f"mesh ranks' checksums {[r['sums'] for r in res]} "
+          f"{[r['reg_sums'] for r in res]}")
+    want = {"scatter_add": 0, "scatter_add_bf16": MB_LEVELS, "gather_rows": MB_LEVELS}
+    check(all(len(r["launches"]) == MESH_DP_STEPS and all(x == want for x in r["launches"])
+              for r in res), f"mesh ranks: DP steps' launches {[r['launches'] for r in res]}, "
+          f"not K1p/K2p {MB_LEVELS}/{MB_LEVELS} in each")
+    check(all(r["metrics"] == res[0]["metrics"] for r in res), "mesh ranks' metrics differ")
+
+    # each step's mean-of-shards gradient in this process, at the ranks'
+    # parameters (the one-process trainer steps with the ranks' own mean
+    # gradient, so it holds their state bit for bit: checked at the end)
+    scene, _ = _scenes()
+    ref = NGPTrainer(config_parser(SHAPE_FLAGS + ["--expname", "chip_smoke_mesh_ref",
+                                                  "--out_dir", out_dir]), scene)
+    local_rcfg = dataclasses.replace(ref.render_config,
+                                     buffer_size=ref.render_config.buffer_size // 2)
+    ref.update_occupancy(0)  # the ranks' step 0 updates the grid first
+    losses, step_grads = [], []
+    for step in range(MESH_DP_STEPS):
+        shard_grads, shard_seen, shard_loss = [], [], []
+        for r in range(2):
+            seen = {}
+            real = _record_scatters(packed_grid, seen)
+            try:
+                d = StepDraws(*(t.to(ref.device) for t in res[r]["draws"][step]))
+                loss, _ = step_loss(ref.params, ref.model_config, local_rcfg, ref.grid,
+                                    ref.aabb, ref.images, ref.c2ws, ref.K, d, True, True)
+                g = torch.autograd.grad(loss, ngp.parameters(ref.params))
+            finally:
+                packed_grid.level_backward = real
+            shard_grads.append(g)
+            shard_seen.append(seen["cuda"])
+            shard_loss.append(loss.item())
+        mean = [(a + b) / 2 for a, b in zip(*shard_grads)]
+        step_grads.append(_grads_agree(torch, packed_grid, ref.model_config.grid,
+                                       res[0]["grads"][step], mean, shard_seen,
+                                       f"mesh ranks step {step}"))
+        losses.append(sum(shard_loss) / 2)
+        del shard_grads, mean
+        for p, g in zip(ngp.parameters(ref.params), res[0]["grads"][step]):
+            p.grad = g.to(ref.device)
+        ref.apply_gradients(step)
+    got = [m["loss"] for m in res[0]["metrics"]]
+    check(all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(got, losses)),
+          f"mesh ranks: losses {got} against the one-process {losses}")
+    for a, b in zip(res[0]["params"], _snapshot_params(ref)):
+        check(torch.equal(a, b.cpu()), "mesh ranks: parameters are not Adam's steps on their "
+              "mean gradients")
+    del ref
+
+    cfg = config_parser(["--root_dir", root, "--scene", subject, "--out_dir", out_dir,
+                         "--expname", "chip_smoke_mesh_reg_ref", "--no_bf16"])
+    ds = NeRFRegDataset(root, subject_id=subject, split="train", seed=cfg.seed)
+    torch.backends.cudnn.allow_tf32 = False
+    reg = RegTrainer(cfg, ds, [])
+    pair = [ds[0], ds[0]]  # the ranks' fetches, in their order
+    grads, totals = [], []
+    for item in pair:
+        g, total, _, _ = reg.pair_grads([to_device(item, reg.device)])
+        grads.append(g)
+        totals.append(total)
+    reg_grad_rel = _rel_norm(torch, res[0]["reg_grad"].to(reg.device), (grads[0] + grads[1]) / 2)
+    reg_total = (totals[0] + totals[1]).item() / 2
+    check(reg_grad_rel <= REG_STEP_TOL["grad_norm_rel"]
+          and math.isclose(res[0]["reg_metrics"]["total"], reg_total,
+                           rel_tol=REG_STEP_TOL["losses_rel"])
+          and res[0]["reg_metrics"]["skipped_nonfinite"] == 0.0,
+          f"mesh ranks: RegTr gradient {reg_grad_rel} of the norm off the mean-of-shards one, "
+          f"total {res[0]['reg_metrics']['total']} vs {reg_total}")
+    del grads
+    reg.optimizer.step(res[0]["reg_grad"].to(reg.device), res[0]["reg_total"].to(reg.device))
+    check(torch.equal(reg.optimizer.flat.cpu(), res[0]["reg_flat"]),
+          "mesh ranks: RegTr parameters are not Adam's step on the reduced gradient")
+    torch.backends.cudnn.allow_tf32 = True
+    del reg
+    torch.cuda.empty_cache()
+    rank_launches = {k: sum(x[k] for r in res for x in r["launches"]) for k in want}
+    out["launches"] = {k: out["dp_step"]["launches"][k] + out["surface"]["launches"][k]
+                       + rank_launches[k] for k in want}
+    out["ranks"] = {"seconds": ranks_s, "losses": got, "step_grads": step_grads,
+                    "launches": rank_launches, "reg_grad_rel_norm": reg_grad_rel}
+    print(f"mesh [2 ranks, gloo on cuda:0]: {ranks_s:.3f} s for both ranks' runs; "
+          f"{MESH_DP_STEPS} stage-1 DP steps: losses {got} (one-process {losses}), K1p/K2p "
+          f"{MB_LEVELS}/{MB_LEVELS} in each step of each rank; each step's mean gradient "
+          f"against the one-process mean-of-shards one at the same parameters {step_grads}; "
+          f"parameters Adam's steps on those gradients bit for bit, equal on both ranks "
+          f"(checksum {res[0]['sums'][0]}); RegTr DP step: gradient within "
+          f"{reg_grad_rel:.3e} of the mean-of-shards one's norm, parameters Adam's step on it "
+          f"bit for bit, ranks equal; mesh phase launches {out['launches']}", flush=True)
     return out
 
 
@@ -2564,6 +3245,8 @@ def main() -> int:
         multi = timed("multi-block", multi_block_phase, torch, out_dir)
         views = timed("novel views", novel_views_phase, torch, multi, out_dir)
         marchers = timed("marchers", marcher_phase, torch, multi.pop("grid"), out_dir)
+        fleet = timed("fleet", fleet_phase, torch, out_dir)
+        torch.cuda.empty_cache()
         block_dir = trainer.output_dir
         del trainer
         torch.cuda.empty_cache()
@@ -2573,12 +3256,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         exact = timed("register train", register_train_phase, torch, root, subject, out_dir)
         torch.cuda.empty_cache()
+        mesh = timed("mesh", mesh_phase, torch, out_dir, multi["model_dirs"][0], root, subject)
         k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
     timed("K1p device", k1p_device_phase, torch, k1p)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fields_") as out_dir:
         fields = timed("fields", fields_phase, torch, dev, out_dir)
     print(json.dumps({"fields": fields}), flush=True)
+    print(json.dumps({"fleet": {k: v for k, v in fleet.items() if k != "k2p_checked"},
+                      "mesh": mesh}), flush=True)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     def entry(name, source, replaces, launches, k):
@@ -2590,6 +3276,8 @@ def main() -> int:
     def by_path(name):
         return {"train defaults": default_launches[name],
                 "multi-block": multi["launches"][name],
+                "fleet": fleet["launches"][name],
+                "mesh": mesh["launches"][name],
                 "compact": marchers["compact"]["launches"][name],
                 "quota": marchers["quota"]["launches"][name]}
 
@@ -2609,6 +3297,7 @@ def main() -> int:
                                       "register train exact visibility": exact["k2p_launches"]}),
              multi_block_index_select_checks=sum(len(b["k2p_checked"])
                                                  for b in multi["blocks"]),
+             fleet_index_select_checks=len(fleet["k2p_checked"]),
              exact_path={k: exact["k2p_exact"][k] for k in ("ms", "bound_ms",
                                                             "profiled_us_a_launch")}),
     ]

@@ -8,6 +8,11 @@ LPIPS when its weights exist, and the random-feature `lpips_rand_alex`
 voxel_mask.pt, voxel_point_cloud.ply and the density_voxel_* variants
 next to the block's checkpoint.
 
+With --mesh_shape N, under `torchrun --nproc_per_node N`, the surface pass
+of the extraction is sharded over the N ranks (parallel/extract_sharded.py);
+rank 0 alone evaluates the test views and writes the files, which are the
+same as one device's.
+
 Usage:
   python -m dregnerf_tpu_torch.eval_ngp_nerf --dataset objaverse \
       --root_dir <root> --scene <subject> --expname <name> [--device cpu]
@@ -31,14 +36,13 @@ class Evaluator:
     `device` (default cuda)."""
 
     def __init__(self, config, model_dir: str, scene_data, device=None):
-        from dregnerf_tpu_torch.device import resolve_device
+        from dregnerf_tpu_torch.parallel.mesh import mesh_and_device
         from dregnerf_tpu_torch.runtime.ngp_trainer import load_field_from_checkpoint
 
         self.config = config
         self.model_dir = model_dir
         self.scene = scene_data
-        self.device = resolve_device(device if device is not None
-                                     else getattr(config, "device", None))
+        self.mesh, self.device = mesh_and_device(config, device)  # no mesh unless --mesh_shape
         ckpt = os.path.join(model_dir, "model", "model.ckpt")
         if not os.path.exists(ckpt):
             ckpt = os.path.join(model_dir, "model.ckpt")
@@ -105,17 +109,21 @@ class Evaluator:
         return result
 
     def sample_points(self) -> dict:
-        """Extract the voxel grid and write its artifacts; returns the
-        extracted arrays and the paths written."""
+        """Extract the voxel grid and write its artifacts (rank 0 only under
+        --mesh_shape); returns the extracted arrays and the paths written."""
         from dregnerf_tpu_torch.extract.sample_grid import (
             extract_voxel_features,
             save_voxel_artifacts,
         )
 
+        from dregnerf_tpu_torch.parallel.mesh import barrier, is_main
+
         extracted = extract_voxel_features(
             self.params, self.model_config, self.grid, self.meta, self.generator,
-            surface_chunk=min(self.config.test_chunk_size, 8192), device=self.device)
-        written = save_voxel_artifacts(self.model_dir, extracted)
+            surface_chunk=min(self.config.test_chunk_size, 8192), device=self.device,
+            mesh=self.mesh)
+        written = save_voxel_artifacts(self.model_dir, extracted) if is_main(self.mesh) else []
+        barrier(self.mesh)
         n_surf = int((extracted["surface_mask"] & extracted["density_mask"]).sum())
         print(f"[extract] {self.model_dir}: {n_surf} surface voxels", flush=True)
         return dict(extracted, written=written)
@@ -131,11 +139,14 @@ def _write_png(path: str, rgb: np.ndarray) -> None:
 
 def eval_blocks(config, model_dirs, test_blocks) -> list:
     """Evaluate and extract the block in each of `model_dirs` on the
-    matching block of `test_blocks`; returns [(metrics, extracted)]."""
+    matching block of `test_blocks`; returns [(metrics, extracted)]
+    (metrics None on the ranks after 0 under --mesh_shape)."""
+    from dregnerf_tpu_torch.parallel.mesh import is_main
+
     results = []
     for model_dir, scene in zip(model_dirs, test_blocks):
         ev = Evaluator(config, model_dir, scene)
-        results.append((ev.evaluate(), ev.sample_points()))
+        results.append((ev.evaluate() if is_main(ev.mesh) else None, ev.sample_points()))
     return results
 
 

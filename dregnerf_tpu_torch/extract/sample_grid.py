@@ -97,14 +97,26 @@ def compute_surface_mask(params: Any, model_cfg: ngp.NGPConfig, grid: OccupancyG
                          aabb: torch.Tensor, rcfg: RenderConfig, points_world: np.ndarray,
                          camera_poses: np.ndarray, chunk: int = 8192,
                          buffer_size: int = 1 << 17, cutoff: float = SURFACE_CUTOFF,
-                         samples_per_ray: int = 64, return_scores: bool = False) -> np.ndarray:
+                         samples_per_ray: int = 64, return_scores: bool = False,
+                         mesh=None) -> np.ndarray:
     """[Np] bool: max over cameras of S >= cutoff (or the [Np] f32 scores).
 
     `chunk` is clamped to buffer_size // samples_per_ray rays, as in the
-    JAX package. Runs on the device of `aabb`; one host read per chunk."""
+    JAX package. Runs on the device of `aabb`; one host read per chunk.
+    With `mesh` (parallel/mesh.py, from --mesh_shape) the chunk is padded
+    to a multiple of the mesh size, each rank takes its slice of the rays
+    (parallel/extract_sharded.py), and one all_gather a chunk assembles
+    the scores, which every rank returns."""
     np_pts = points_world.shape[0]
     chunk = max(1, min(chunk, buffer_size // max(samples_per_ray, 1)))
-    fn = make_surface_chunk_fn(params, model_cfg, grid, aabb, rcfg, samples_per_ray)
+    if mesh is not None:
+        from dregnerf_tpu_torch.parallel.extract_sharded import make_sharded_surface_fn
+
+        chunk = -(-chunk // mesh.size) * mesh.size
+        fn = make_sharded_surface_fn(mesh, params, model_cfg, grid, aabb, rcfg,
+                                     samples_per_ray)
+    else:
+        fn = make_surface_chunk_fn(params, model_cfg, grid, aabb, rcfg, samples_per_ray)
     dev = aabb.device
     origins = torch.as_tensor(np.asarray(camera_poses, np.float32)[:, :3, 3], device=dev)
     points = torch.as_tensor(np.asarray(points_world, np.float32), device=dev)
@@ -122,6 +134,8 @@ def compute_surface_mask(params: Any, model_cfg: ngp.NGPConfig, grid: OccupancyG
             t[:nn] = t_max
             s = fn(origin.expand(chunk, 3), d, t)
             acc = s if acc is None else torch.maximum(acc, s)
+        if mesh is not None:
+            acc = mesh.all_gather_rows(acc)
         surface[i:i + nn] = acc[:nn].cpu().numpy()
     if return_scores:
         return surface
@@ -165,10 +179,12 @@ def extract_voxel_features(params: Any, model_cfg: ngp.NGPConfig, grid: Occupanc
                            meta: Dict[str, Any], generator: torch.Generator | None = None,
                            jitter: np.ndarray | torch.Tensor | None = None,
                            density_threshold: float = DENSITY_THRESHOLD,
-                           surface_chunk: int = 8192, device=None) -> Dict[str, np.ndarray]:
+                           surface_chunk: int = 8192, device=None,
+                           mesh=None) -> Dict[str, np.ndarray]:
     """The whole extraction of one block (points, rgb, sigma, alpha,
     indices, density_mask, surface_mask, resolution), on `device` (default
-    cuda), where `params` and `grid` must lie."""
+    cuda), where `params` and `grid` must lie; the surface pass sharded
+    over `mesh`'s ranks when given."""
     dev = resolve_device(device)
     if params["table"].device.type != dev.type or grid.binary.device.type != dev.type:
         raise ValueError(f"params on {params['table'].device}, grid on "
@@ -178,7 +194,7 @@ def extract_voxel_features(params: Any, model_cfg: ngp.NGPConfig, grid: Occupanc
     points, indices = occupied_voxel_points(grid, aabb, rcfg.contraction, generator, jitter)
     surface_mask = compute_surface_mask(params, model_cfg, grid, aabb, rcfg, points,
                                         np.asarray(meta["camera_poses"], np.float32),
-                                        chunk=surface_chunk)
+                                        chunk=surface_chunk, mesh=mesh)
     rgb, sigma, alpha = query_features(params, model_cfg, aabb, points)
     return {
         "points": points,

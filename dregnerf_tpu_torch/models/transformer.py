@@ -13,6 +13,11 @@ uniform distribution and stays finite; a boolean `attn_mask` in
 `scaled_dot_product_attention` would give NaN rows there, and 0 * NaN
 survives the overlap weights into Kabsch. The attention is therefore a
 plain matmul-softmax, in the compute dtype as in flax.
+
+`sp_mesh` (a parallel/mesh.py Mesh) is the sequence-parallel switch: the
+six attention calls of each layer split their queries over the mesh's
+ranks (parallel/sp_attention.py), with the JAX seam's -1e9 mask, and every
+rank gets the whole output.
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ import torch.nn.functional as F
 from dregnerf_tpu_torch.models.layers import LayerNorm, Linear
 
 
-def _no_sequence_parallel(sp_mesh) -> None:
-    if sp_mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention (sp_mesh) is not ported (ROADMAP.md queue 1 item 5)")
+def _check_sp_mesh(sp_mesh) -> None:
+    from dregnerf_tpu_torch.parallel.mesh import Mesh
+
+    if sp_mesh is not None and not isinstance(sp_mesh, Mesh):
+        raise TypeError(f"sp_mesh must be a parallel.mesh.Mesh, not {type(sp_mesh).__name__}")
 
 
 def _root(depth: int, like: torch.Tensor) -> torch.Tensor:
@@ -49,12 +55,18 @@ class MultiHeadAttention(nn.Module):
     layers (head h is features h*hd:(h+1)*hd), q / sqrt(hd) rounded to the
     dtype, masked logits set to finfo(dtype).min, softmax in the dtype."""
 
-    def __init__(self, d_model: int, num_heads: int, compute_dtype: torch.dtype):
+    def __init__(self, d_model: int, num_heads: int, compute_dtype: torch.dtype,
+                 sp_mesh=None):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
         self.query, self.key, self.value, self.out = (
             Linear(d_model, d_model, compute_dtype=compute_dtype) for _ in range(4))
+        self.sp_attention = None
+        if sp_mesh is not None:
+            from dregnerf_tpu_torch.parallel.sp_attention import sp_attention_fn
+
+            self.sp_attention = sp_attention_fn(sp_mesh)
 
     def forward(self, q_in, k_in, v_in, mask: torch.Tensor) -> torch.Tensor:
         b, nq, d = q_in.shape
@@ -66,6 +78,9 @@ class MultiHeadAttention(nn.Module):
 
         q = heads(self.query(q_in))
         k, v = heads(self.key(k_in)), heads(self.value(v_in))
+        if self.sp_attention is not None:
+            out = self.sp_attention(q, k, v, mask).transpose(1, 2).reshape(b, nq, d)
+            return self.out(out)
         q = q / _root(hd, q)
         logits = q @ k.transpose(-1, -2)
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
@@ -78,10 +93,10 @@ class CrossEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, num_heads: int = 8, dim_feedforward: int = 1024,
                  compute_dtype: torch.dtype = torch.float32, sp_mesh=None):
         super().__init__()
-        _no_sequence_parallel(sp_mesh)
+        _check_sp_mesh(sp_mesh)
         dt = compute_dtype
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dt)
-        self.cross_attn = MultiHeadAttention(d_model, num_heads, dt)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dt, sp_mesh)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dt, sp_mesh)
         self.norm1, self.norm2, self.norm3 = (LayerNorm(d_model, dt) for _ in range(3))
         self.ffn1 = Linear(d_model, dim_feedforward, compute_dtype=dt)
         self.ffn2 = Linear(dim_feedforward, d_model, compute_dtype=dt)
@@ -106,9 +121,9 @@ class TransformerCrossEncoder(nn.Module):
                  dim_feedforward: int = 1024, compute_dtype: torch.dtype = torch.float32,
                  sp_mesh=None):
         super().__init__()
-        _no_sequence_parallel(sp_mesh)
+        _check_sp_mesh(sp_mesh)
         self.layers = nn.ModuleList(
-            CrossEncoderLayer(d_model, num_heads, dim_feedforward, compute_dtype)
+            CrossEncoderLayer(d_model, num_heads, dim_feedforward, compute_dtype, sp_mesh)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model, compute_dtype)
 

@@ -4,8 +4,9 @@ registration trainer and evaluator read: same names and defaults), plus
 `--device`.
 
 Every `--grad_accum` value trains, with or without `--rle_backward`, and
-every `--march_compaction`, `--field` and `--dataset`. `--fleet` raises
-NotImplementedError.
+every `--march_compaction`, `--field` and `--dataset`; `--fleet` trains
+the blocks of `--multi_blocks` together, and `--mesh_shape` runs the
+trainers and the extraction over the ranks of a torchrun job (parallel/).
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--cone_angle", type=float, default=0.0)
     p.add_argument("--multi_blocks", action="store_true")
     p.add_argument("--fleet", action="store_true",
-                   help="not ported: raises NotImplementedError (ROADMAP.md queue 1 item 5, "
-                   "parallel/)")
+                   help="with --multi_blocks: train every block together, the blocks spread "
+                   "over the visible CUDA devices (runtime/fleet_trainer.py)")
     p.add_argument("--num_blocks", type=int, default=3)
     p.add_argument("--min_num_blocks", type=int, default=2)
     p.add_argument("--max_num_blocks", type=int, default=4)
@@ -120,8 +121,10 @@ def config_parser(argv=None) -> argparse.Namespace:
                    help="exact mode: also march the warped keypoints (the gradient-free "
                    "nerf-consistency labels) instead of the voxel-mask lookup")
     p.add_argument("--mesh_shape", type=str, default="",
-                   help="not ported: a non-empty value raises NotImplementedError "
-                   "(ROADMAP.md queue 1 item 5)")
+                   help="N (or N,1): data parallelism over the N ranks of a torchrun job, "
+                   "which must number N (NCCL on CUDA, gloo with --device cpu): the NGP "
+                   "step, the extraction's surface pass, one pair a rank in registration "
+                   "training, and the blocks of --fleet; '' or 1: one device")
     p.add_argument("--watchdog_s", type=float, default=1200,
                    help="hang watchdog of training: exit with code 86 when a step's "
                    "heartbeat is this many seconds stale, for a supervisor to restart "

@@ -22,8 +22,15 @@ on the device from its own `torch.Generator`. `train()` runs each step
 through the retry wrapper (an emergency checkpoint on a fatal error) under
 the hang watchdog (`--watchdog_s`; runtime/resilience.py). Scalars go to
 the ScalarLogger (the printed line, log.txt, and tensorboard with
-`--enable_tensorboard`) and to log.jsonl. Not ported yet: data-parallel
-and fleet training.
+`--enable_tensorboard`) and to log.jsonl.
+
+With `--mesh_shape N` (N ranks under torchrun) each step is the
+data-parallel step of parallel/ngp_dp.py: rank 0's initial weights are
+broadcast, each rank draws `num_rays // N` rays from a generator of its
+own, the occupancy update draws from the trainer's generator (the same on
+every rank), and only rank 0 logs, validates and writes checkpoints while
+the others wait at a barrier. The fleet of blocks is
+runtime/fleet_trainer.py.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from dregnerf_tpu_torch.models.mlp_nerf import VanillaNeRFConfig
 from dregnerf_tpu_torch.ops import occupancy
 from dregnerf_tpu_torch.ops.contraction import contract_inv
 from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig
+from dregnerf_tpu_torch.parallel.mesh import barrier, is_main, mesh_and_device
 from dregnerf_tpu_torch.render.renderer import (
     RenderConfig,
     render_image_chunked,
@@ -135,7 +143,7 @@ def step_loss(params, model_config, render_config: RenderConfig,
     diff = out.rgb - pixels
     loss = (huber(diff) * alive[:, None]).sum() / denom
     sq = (diff.detach() ** 2 * alive[:, None]).sum() / denom
-    return loss, {"psnr": mse_to_psnr(sq), "n_samples": aux["n_samples"],
+    return loss, {"psnr": mse_to_psnr(sq), "sq": sq, "n_samples": aux["n_samples"],
                   "alive_rays": n_alive}
 
 
@@ -163,8 +171,7 @@ class NGPTrainer:
 
     def __init__(self, config, scene: SceneData, val_scene: Optional[SceneData] = None,
                  output_dir: Optional[str] = None, device=None):
-        self.device = resolve_device(device if device is not None
-                                     else getattr(config, "device", None))
+        self.mesh, self.device = mesh_and_device(config, device)  # no mesh unless --mesh_shape
         self.config = config
         self.scene = scene
         self.val_scene = val_scene
@@ -172,9 +179,16 @@ class NGPTrainer:
         os.makedirs(self.output_dir, exist_ok=True)
         self.ckpt_manager = CheckpointManager(os.path.join(self.output_dir, "model"))
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        # the rays' draws: the trainer's generator on one device, a stream
+        # of each rank's own under --mesh_shape
+        self.ray_generator = self.generator if self.mesh is None else torch.Generator(
+            device=self.device).manual_seed(config.seed + 1 + self.mesh.rank)
 
         self.setup_bounding_box()
         self.build_networks()
+        if self.mesh is not None:
+            for p in leaves_with_paths(self.params).values():
+                self.mesh.broadcast_(p.data)
         self.setup_optimizer()
         dev = self.device
         self.images = torch.as_tensor(scene.images, device=dev)  # uint8, resident
@@ -252,7 +266,10 @@ class NGPTrainer:
         self.optimizer.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def update_occupancy(self, step: int) -> None:
+    def update_occupancy(self, step: int, **draws) -> None:
+        """The EMA update of step `step` (warmup below OCC_WARMUP_STEPS),
+        with the draws of occupancy.update_grid from the trainer's
+        generator unless given."""
         cfg = self.config
         params = self.field.prepare_params(self.params, self.model_config)
 
@@ -267,23 +284,34 @@ class NGPTrainer:
         self.grid = occupancy.update_grid(
             self.grid, occ_fn, warmup=step < OCC_WARMUP_STEPS,
             n_samples=min(cfg.grid_resolution**3 // 4, 1 << 17),
-            generator=self.generator)
+            generator=self.generator, **draws)
 
-    def train_iteration(self, step: int) -> dict:
-        """One training step; returns its metrics as device tensors (plus
-        the ray bucket it ran with)."""
+    def train_iteration(self, step: int, draws: StepDraws | None = None) -> dict:
+        """One training step (on `draws`, else on rays drawn here: the
+        bucket's, or this rank's share of it under --mesh_shape); returns
+        its metrics as device tensors (plus the ray bucket it ran with)."""
         if step % OCC_UPDATE_INTERVAL == 0:
             self.update_occupancy(step)
         bucket = self.num_rays
-        draws = draw_step_inputs(self.generator, bucket, self.scene.num_images,
-                                 self.scene.height, self.scene.width, self.device)
-        loss, metrics = step_loss(
-            self.params, self.model_config, self.render_config, self.grid,
-            self.aabb, self.images, self.c2ws, self.K, draws,
-            self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
-        loss.backward()
+        if draws is None:
+            n = bucket if self.mesh is None else max(bucket // self.mesh.size, 1)
+            draws = draw_step_inputs(self.ray_generator, n, self.scene.num_images,
+                                     self.scene.height, self.scene.width, self.device)
+        if self.mesh is None:
+            loss, metrics = step_loss(
+                self.params, self.model_config, self.render_config, self.grid,
+                self.aabb, self.images, self.c2ws, self.K, draws,
+                self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
+            loss.backward()
+            metrics["loss"] = loss.detach()
+        else:
+            from dregnerf_tpu_torch.parallel.ngp_dp import dp_train_step
+
+            metrics = dp_train_step(
+                self.mesh, self.params, self.model_config, self.render_config, self.grid,
+                self.aabb, self.images, self.c2ws, self.K, draws, self.scene.synthetic,
+                self.scene.opengl, self.field, self.timestamps)
         self.apply_gradients(step)
-        metrics["loss"] = loss.detach()
 
         # ray bucket feedback from the count saved at the previous sync
         if step % BATCH_SYNC_INTERVAL == 0:
@@ -323,13 +351,18 @@ class NGPTrainer:
                         "elapsed_s": time.time() - t0,
                     })
                 if (step + 1) % cfg.n_validation == 0:
-                    self.validate(step + 1)
+                    if is_main(self.mesh):
+                        self.validate(step + 1)
+                    barrier(self.mesh)
                 if (step + 1) % cfg.n_checkpoint == 0 or step + 1 == cfg.max_iterations:
                     self.save_checkpoint(step + 1)
+                    barrier(self.mesh)
                 wd.beat()
 
     # ------------------------------------------------------------------ infra
     def log_scalars(self, step: int, scalars: dict) -> None:
+        if not is_main(self.mesh):
+            return
         self.logger.log_scalars(step, scalars)
         with open(self.log_path, "a") as f:
             f.write(json.dumps({"step": step, **scalars}) + "\n")
@@ -398,6 +431,9 @@ class NGPTrainer:
                 "1": {"count": count}}
 
     def save_checkpoint(self, step: int, score: Optional[float] = None) -> None:
+        """Written by rank 0 only under --mesh_shape."""
+        if not is_main(self.mesh):
+            return
         state = {
             "model": self.params,
             "occupancy": {"occs": self.grid.occs, "binary": self.grid.binary},

@@ -26,8 +26,14 @@ runtime/resilience.py). Scalars go to log.txt and log.jsonl, and with
 (utils/pose_server.py) on `--visdom_port`; each validate() pushes the
 first pair it scores.
 
-Not ported: `--mesh_shape` (the data-parallel step) raises
-NotImplementedError (ROADMAP.md queue 1 item 5).
+With `--mesh_shape N` (N ranks under torchrun) a step trains N pairs, one
+a rank, through the data-parallel step of parallel/regtr_dp.py: every rank
+draws the same epoch permutation and takes its pair of each group of N
+(the remainder pairs are dropped), as a host batch without the
+device-cached augmentation; rank 0's initial weights are broadcast, and
+only rank 0 logs, validates and writes checkpoints while the others wait
+at a barrier. As in JAX, `--visibility exact` and `--reg_batch_size` > 1
+refuse a mesh.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from dregnerf_tpu_torch.geometry import se3
 from dregnerf_tpu_torch.losses import registration as L
 from dregnerf_tpu_torch.losses.visibility import grid_visibility
 from dregnerf_tpu_torch.models.regtr import NeRFRegTr
+from dregnerf_tpu_torch.parallel.mesh import barrier, is_main
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -165,24 +172,26 @@ class RegTrainer:
 
     def __init__(self, config, train_dataset, val_dataset, output_dir: Optional[str] = None,
                  model: Optional[NeRFRegTr] = None, device=None):
-        from dregnerf_tpu_torch.device import resolve_device
         from dregnerf_tpu_torch.models.regtr import params_from_jax, random_jax_params
+        from dregnerf_tpu_torch.parallel.mesh import mesh_and_device, mesh_ranks
         from dregnerf_tpu_torch.runtime.checkpoint import CheckpointManager
         from dregnerf_tpu_torch.runtime.reg_optim import GuardedAdamW
 
-        if config.mesh_shape:
-            raise NotImplementedError("--mesh_shape (the data-parallel registration step) is "
-                                      "not ported yet (ROADMAP.md queue 1 item 5)")
         self.config = config
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
-        self.device = resolve_device(device if device is not None
-                                     else getattr(config, "device", None))
         self.visibility = config.visibility
         self.batch_size = max(int(config.reg_batch_size), 1)
         if self.visibility == "exact" and self.batch_size > 1:
             raise ValueError("--visibility exact supports reg_batch_size=1 (the reference "
                              "trains at batch 1; exact labels march Nc rays per keypoint)")
+        if mesh_ranks(config) > 1:
+            if self.visibility == "exact":
+                raise ValueError("--mesh_shape with --visibility exact is not supported yet")
+            if self.batch_size > 1:
+                raise ValueError("--mesh_shape shards one pair per rank; leave "
+                                 "--reg_batch_size at 1 (pairs per step = mesh size)")
+        self.mesh, self.device = mesh_and_device(config, device)  # --mesh_shape: a pair a rank
         self.output_dir = output_dir or os.path.join(config.out_dir, config.expname)
         os.makedirs(self.output_dir, exist_ok=True)
         self.ckpt_manager = CheckpointManager(os.path.join(self.output_dir, "model"))
@@ -199,6 +208,8 @@ class RegTrainer:
                                           device=self.device).requires_grad_(True)
         self.param_keys = [k for k, _ in self.model.named_parameters()]
         self.optimizer = GuardedAdamW([*self.model.parameters(), self.infonce_W], config.lr)
+        if self.mesh is not None:
+            self.mesh.broadcast_(self.optimizer.flat)
         self.iteration = 0
         self.on_validate = None  # optional (iteration, score) callback after a validation
         self.train_deadline = None  # optional wall-clock end of train(), epoch seconds
@@ -227,6 +238,17 @@ class RegTrainer:
     def _step(self, batches, visibility_fns=None, warped_visibility_fns=None) -> Dict:
         """Forward, losses and backward over the pairs `batches`, then the
         guarded update; the metrics as 0-dim device tensors."""
+        grad, total, losses, pose = self.pair_grads(batches, visibility_fns,
+                                                    warped_visibility_fns)
+        finite = self.optimizer.step(grad, total)
+        rre, rte = se3.pose_error(pose.float(), batches[0]["pose"][:3, :4])
+        return {**losses, "total": total, "R_error": rre, "t_error": rte,
+                "skipped_nonfinite": (~finite).to(torch.float32)}
+
+    def pair_grads(self, batches, visibility_fns=None, warped_visibility_fns=None):
+        """Forward, losses and backward over the pairs `batches`: (the flat
+        gradient of their mean total, the total, the losses (means over the
+        pairs), the first pair's predicted pose)."""
         n = len(batches)
         leaves = self.optimizer.leaves
         grad, totals, all_losses, pose = None, [], [], None
@@ -244,10 +266,7 @@ class RegTrainer:
         total = totals[0] if n == 1 else torch.stack(totals).mean()
         losses = all_losses[0] if n == 1 else {
             k: torch.stack([ls[k] for ls in all_losses]).mean() for k in all_losses[0]}
-        finite = self.optimizer.step(grad, total)
-        rre, rte = se3.pose_error(pose.float(), batches[0]["pose"][:3, :4])
-        return {**losses, "total": total, "R_error": rre, "t_error": rte,
-                "skipped_nonfinite": (~finite).to(torch.float32)}
+        return grad, total, losses, pose
 
     def _to_device_cached(self, item: Dict) -> Dict[str, torch.Tensor]:
         """The batch of an item with cache keys: grids and masks LRU-cached
@@ -326,11 +345,17 @@ class RegTrainer:
         return self._step([batch], vis_fns, warped)
 
     def train_iteration(self, item: Dict) -> Dict:
+        """One step on the pair `item`; under --mesh_shape, this rank's pair
+        of the step (parallel/regtr_dp.py)."""
         if "aug" in item:  # a get_raw item: the device-cached path
             return self._step([self._augment(self._to_device_cached(item), item["aug"])])
         batch = to_device(item, self.device)
         if self.visibility == "exact":
             return self._exact_step(batch, item)
+        if self.mesh is not None:
+            from dregnerf_tpu_torch.parallel.regtr_dp import dp_reg_step
+
+            return dp_reg_step(self.mesh, self, batch)
         return self._step([batch])
 
     def train_iteration_batch(self, items) -> Dict:
@@ -351,7 +376,7 @@ class RegTrainer:
         rng = np.random.default_rng(cfg.seed)
         t0 = time.time()
         score: Optional[float] = None  # no validation yet: never "best"
-        bsz = self.batch_size
+        bsz = self.batch_size if self.mesh is None else self.mesh.size  # one pair a rank
         if bsz > 1:
             n_pairs = len(self.train_dataset)
             if n_pairs < bsz:
@@ -360,8 +385,8 @@ class RegTrainer:
             if n_pairs % bsz:
                 print(f"[reg_trainer] dropping {n_pairs % bsz}/{n_pairs} remainder pairs per "
                       f"epoch (batch size {bsz})", flush=True)
-        use_raw = (bsz == 1 and self.visibility != "exact" and self._dev_cache_size > 0
-                   and hasattr(self.train_dataset, "get_raw"))
+        use_raw = (bsz == 1 and self.visibility != "exact" and self.mesh is None
+                   and self._dev_cache_size > 0 and hasattr(self.train_dataset, "get_raw"))
         fetch = self.train_dataset.get_raw if use_raw else self.train_dataset.__getitem__
         if use_raw:
             print(f"[reg_trainer] device-resident grid cache on (<= {self._dev_cache_size} "
@@ -377,7 +402,9 @@ class RegTrainer:
                 if bsz > 1:
                     order = order[: len(order) - len(order) % bsz].reshape(-1, bsz)
                 for i in order:
-                    if bsz > 1:
+                    if self.mesh is not None:  # this rank's pair only is read
+                        i = i[self.mesh.rank]
+                    if i.ndim:
                         metrics = run_with_retries(
                             lambda i=i: self.train_iteration_batch(
                                 [self.train_dataset[int(j)] for j in i]),
@@ -390,20 +417,25 @@ class RegTrainer:
                     if self.iteration % cfg.n_tensorboard == 0:
                         self.log_scalars(metrics, time.time() - t0)
                     if self.iteration % cfg.n_validation == 0:
-                        score = self.validate()
-                        if self.on_validate is not None:
-                            try:  # bookkeeping must not stop training
-                                self.on_validate(self.iteration, score)
-                            except Exception as exc:  # noqa: BLE001
-                                print(f"[reg_trainer] on_validate failed: {exc}", flush=True)
+                        if is_main(self.mesh):
+                            score = self.validate()
+                            if self.on_validate is not None:
+                                try:  # bookkeeping must not stop training
+                                    self.on_validate(self.iteration, score)
+                                except Exception as exc:  # noqa: BLE001
+                                    print(f"[reg_trainer] on_validate failed: {exc}",
+                                          flush=True)
+                        barrier(self.mesh)
                     if self.iteration % cfg.n_checkpoint == 0:
                         self.save_checkpoint(score)
+                        barrier(self.mesh)
                     if self.iteration >= max_iterations:
                         break
                     if deadline is not None and time.time() >= deadline:
                         break
                     wd.beat()
         self.save_checkpoint(score)
+        barrier(self.mesh)
 
     def validate(self, fraction: float | None = None) -> float:
         """Mean RRE/RTE over a random subsample of the val pairs (default
@@ -480,6 +512,8 @@ class RegTrainer:
 
     def log_scalars(self, metrics: Dict, elapsed: float) -> None:
         values = {k: float(v) for k, v in metrics.items()}
+        if not is_main(self.mesh):
+            return
         self._log_line(f"iter {self.iteration} | "
                        + " | ".join(f"{k} {v:.4f}" for k, v in values.items())
                        + f" | {elapsed:.1f}s")
@@ -514,7 +548,10 @@ class RegTrainer:
 
     def save_checkpoint(self, score: Optional[float] = None) -> None:
         """Step-stamped, latest and (score given and best) best copies; score
-        None never touches model_best.ckpt (scores are -RRE, negative)."""
+        None never touches model_best.ckpt (scores are -RRE, negative).
+        Written by rank 0 only under --mesh_shape."""
+        if not is_main(self.mesh):
+            return
         opt = self.optimizer
         state = {
             "params": self._state_tree(opt.flat),

@@ -4,12 +4,17 @@ train_ngp_nerf.py).
 One block per scene; with --multi_blocks the scene is split into a random
 number of camera blocks in [min_num_blocks, max_num_blocks], each in its
 own world frame (persisted to <root>/<scene>/world_frame_transforms.json),
-and each block trains into <out_dir>/<expname>/block_k.
+and each block trains into <out_dir>/<expname>/block_k: one after another,
+or with --fleet all together (runtime/fleet_trainer.py). With
+--mesh_shape N, under `torchrun --nproc_per_node N`, each step is data
+parallel over the N ranks (parallel/ngp_dp.py), or with --fleet each rank
+trains its own blocks.
 
 Usage:
   python -m dregnerf_tpu_torch.train_ngp_nerf --dataset objaverse \
       --root_dir <root> --scene <subject> --expname <name> \
-      [--multi_blocks] [--device cpu]
+      [--multi_blocks [--fleet]] [--device cpu]
+  torchrun --nproc_per_node N -m dregnerf_tpu_torch.train_ngp_nerf ... --mesh_shape N
 """
 from __future__ import annotations
 
@@ -35,24 +40,37 @@ def train_blocks(config, train_blocks, test_blocks) -> list:
     return trainers
 
 
-def train(config) -> None:
+def train_fleet(config, train_blocks, test_blocks):
+    """Train every block of `train_blocks` together (--fleet) into
+    <out_dir>/<expname>/block_k; returns the FleetNGPTrainer."""
+    from dregnerf_tpu_torch.runtime.fleet_trainer import FleetNGPTrainer
+
+    out_dirs = [os.path.join(config.out_dir, config.expname, f"block_{k}")
+                for k in range(len(train_blocks))]
+    print(f"=== fleet-training {len(train_blocks)} blocks ===", flush=True)
+    fleet = FleetNGPTrainer(config, train_blocks, test_blocks, out_dirs)
+    fleet.train()
+    return fleet
+
+
+def train(config):
+    """Train the config's scene; returns the trainer (a list of them, or the
+    fleet, with --multi_blocks)."""
     from dregnerf_tpu_torch.datasets.base import load_scene_blocks
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
-    if config.fleet:
-        raise NotImplementedError("--fleet is not ported yet (ROADMAP.md queue 1 item 5, "
-                                  "parallel/)")
     if config.multi_blocks:
         num_blocks = random.randint(config.min_num_blocks, config.max_num_blocks)
         blocks = [load_scene_blocks(config.dataset, config.root_dir, config.scene, split,
                                     config.factor, True, num_blocks)
                   for split in ("train", "test")]
-        train_blocks(config, *blocks)
-        return
+        return (train_fleet if config.fleet else train_blocks)(config, *blocks)
     train_scene, test_scene = (load_scene_blocks(config.dataset, config.root_dir,
                                                  config.scene, split, config.factor)[0]
                                for split in ("train", "test"))
-    NGPTrainer(config, train_scene, test_scene).train()
+    trainer = NGPTrainer(config, train_scene, test_scene)
+    trainer.train()
+    return trainer
 
 
 def main(argv=None) -> None:

@@ -123,10 +123,14 @@ def test_exact_visibility_refuses_a_mixed_fleet(exact_root, tmp_path):
 # ---------------------------------------------------------- options and CLI
 
 @pytest.mark.parametrize("flags,error", [
-    (["--mesh_shape", "2,1"], NotImplementedError),
+    (["--mesh_shape", "2,1"], ValueError),
     (["--visibility", "exact", "--reg_batch_size", "2"], ValueError)])
 def test_unported_or_invalid_options_raise(pair_root, tmp_path, flags, error):
-    with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else "batch"):
+    """A two-rank mesh in a one-process run (the data-parallel step needs a
+    world of two; tests/test_torch_parallel.py runs it), and exact labels
+    at batch 2."""
+    match = "world of 2 processes" if "--mesh_shape" in flags else "batch"
+    with pytest.raises(error, match=match):
         port_trainer(pair_root, str(tmp_path), flags)
 
 

@@ -248,9 +248,11 @@ def test_cross_encoder_matches_jax_on_every_row(encoder_pair, n_src, n_tgt):
 
 
 def test_cross_encoder_refuses_sequence_parallel():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """sp_mesh must be a parallel.mesh.Mesh (the sequence-parallel switch
+    itself is held against JAX's in tests/test_torch_parallel.py)."""
+    with pytest.raises(TypeError, match="Mesh"):
         ptr.TransformerCrossEncoder(sp_mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         pregtr.NeRFRegTr(sp_mesh=object(), **SMALL)
 
 
