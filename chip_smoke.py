@@ -73,6 +73,20 @@ Phases, in order; any failure exits non-zero:
      max), ms a fleet step and a
      block-step, the idle share of 8 profiled fleet steps, each block's val
      PSNR and checkpoint read back bit for bit;
+ 9c. the stage-3 fleet (`stage3 fleet`): the twin of
+     scripts/experiments/stage3_fleet.py at its defaults (L8F4 blocks: K1p
+     and K2p on rows 32 wide over 8 levels, a width no other phase runs)
+     on two scenes, scene_00 (spheres) to train on and scene_01 (boxes)
+     held out, 36 views of 128 px: the scenes' shape lists, the box
+     scene's RGBA byte for byte _trace's; its stage1_and_2 (each block to
+     S3_NGP_STEPS, every block with surface voxels; K1p and K2p 8 launches
+     in every step without an occupancy update, each level's call of
+     S3_CHECK_STEP held against its plain version: K2p bit for bit, K1p
+     within its slot bound), the regdata tree, its stage3 (S3_REG_STEPS
+     steps, finite losses) and evaluate (scene_01 in both block orders,
+     RegTr with and without the ICP polish; the FGR/RANSAC baseline on the
+     first order only, S3_BASELINE_DRAWS), the metrics files written; the
+     pairs' RRE/RTE and the seconds;
  10. stage 3 on the grid that phase 6 extracted on the card: a two-block
      scene (the block, and a copy whose occupied xyz a known SE(3) moves),
      loaded through NeRFRegDataset; seeded flax-layout weights saved as a
@@ -88,8 +102,13 @@ Phases, in order; any failure exits non-zero:
      best_global_registration(refine=True) on the card, timed (wall, CUDA
      events, one profiled icp_refine, the host's FGR/RANSAC seconds apart,
      the bound of a fused distance-and-argmin kernel); the card against the
-     CPU (CLASSICAL_PARITY_TOL); the results against the known pose
-     (CLASSICAL_TOL); no race candidate may carry an error;
+     CPU (CLASSICAL_PARITY_TOL; the coarse race tie-aware: the CPU's
+     score of each card pose within the tolerance of the card's, the
+     card's best seed among the CPU's best, and each seed whose race
+     scores differ replayed iteration by iteration from the card's poses,
+     every iteration's poses agreeing or its nearest-neighbour choices
+     differing only at near-ties within TIE_REL_GAP); the results against
+     the known pose (CLASSICAL_TOL); no race candidate may carry an error;
  12. stage-3 training on that pair (`register train`): RegTrainer at full
      width in bf16 from the config, 2 + 10 steps on the device-cached,
      augmented path (finite losses, no skipped step, the parameters moved,
@@ -116,7 +135,9 @@ Phases, in order; any failure exits non-zero:
      (equal), sharded_attention at 2048 tokens against the plain formula
      (equal) and a full-width registration DP step in f32 (cuDNN TF32
      off) against the trainer's single-pair step (its gradient within
-     REG_STEP_TOL's grad_norm_rel, the update Adam's on it bit for bit);
+     REG_STEP_TOL's grad_norm_rel, the update Adam's on it bit for bit;
+     beside it, two single-pair gradients at the same parameters, the
+     card's spread from run to run);
      then two ranks under gloo on cuda:0
      (NCCL refuses two ranks on one card): MESH_DP_STEPS stage-1 DP steps
      and one f32 registration DP step, each step's mean gradient held
@@ -209,6 +230,16 @@ PARITY_TOL = {
 CLASSICAL_TOL = {"gicp": (2.0, 0.02), "race": (3.0, 0.05)}
 CLASSICAL_PARITY_TOL = {"rotation_deg": 0.05, "translation": 1e-4, "score_abs": 1e-4,
                         "score_rel": 1e-4}
+# the coarse race's paths, card against CPU: a seed whose race score differs
+# between the devices is replayed one ICP iteration at a time, both devices
+# starting each iteration from the card's pose. An iteration passes when the
+# next poses agree within CLASSICAL_PARITY_TOL, or when the two devices'
+# nearest-neighbour choices differ only on source points whose two candidate
+# joint distances d2 (in f64 on the CPU) lie within TIE_REL_GAP of each
+# other, relative to |x|^2 + |y|^2: the size of the terms the f32 formula
+# |x|^2 - 2 x.y + |y|^2 cancels, which sets its rounding (a few f32 ulps,
+# 1.2e-7 each, of that size)
+TIE_REL_GAP = 2e-6
 # icp_refine's card-against-CPU init: the known pose after this error (degrees
 # about an axis, then a translation), as a trained RegTr would leave it
 ICP_INIT_ERROR = (8.0, (1.0, -1.0, 0.5), (0.03, 0.02, -0.03))
@@ -228,7 +259,7 @@ MB_FRAME_RADIUS = 3.0
 MB_FRAME_SHARE = 0.3
 MB_SWAPPED_SHARE = 0.2
 MARCH_STEPS = 8  # full-width steps under each training marcher
-FLEET_STEPS = 256  # fleet steps of the two-block fleet (every block-step K1p/K2p 4/4)
+FLEET_STEPS = 128  # fleet steps of the two-block fleet (every block-step K1p/K2p 4/4)
 # two full-width steps' gradients on the card from the same state on the
 # same draws (_grads_agree): the table gradient within GRAD_NORM_TOL of the
 # reference's norm, each MLP leaf within GRAD_NORM_TOL of its max (the
@@ -269,7 +300,7 @@ FIELDS_TOL = {"hash_out": 1e-6, "hash_grad": 1e-5, "loss_rel": 1e-4,
 FIELDS_SMALL = dict(net_depth=6, net_width=32, net_width_condition=16, posenc_xyz=4,
                     posenc_dir=2, warp_depth=2, warp_width=16, posenc_time=2)
 FIELD_STEPS = 128  # full-width steps of --field vanilla and of --field dnerf
-HASH_STEPS = EXTRACT_STEPS  # the hash-grid NGP trains to this step, then is extracted
+HASH_STEPS = 512  # the hash-grid NGP trains to this step, then is extracted
 DNERF_VAL_VIEWS = (10, 30)  # the dnerf phase's val views (times 10/35 and 30/35)
 NV_FACTOR = 8  # the evaluator's render size: 100 x 100 at objaverse's intrinsics
 NV_PSNR_MIN = 35.0  # dB, card against CPU on one frame of a trained block
@@ -277,6 +308,18 @@ NV_OPACITY_SHARE_MIN = 0.05  # of that frame's pixels with opacity over 0.5
 NV_TAGS = ("gt", "aligned", "unaligned")
 NV_ORBIT = 12  # cameras of the evaluator's orbit
 NV_K2P_PER_RENDER = 8  # 2 chunks of 8192 rays (10^4 padded) x 4 encoder levels
+# the stage-3 fleet phase: the twin of scripts/experiments/stage3_fleet.py at
+# its defaults (L8F4: 8 levels of packed rows 32 wide) on two scenes, scene_00
+# (spheres) to train on and scene_01 (boxes) held out, at the fixture's
+# 36 views of 128 px, each block trained to S3_NGP_STEPS (every block must
+# extract surface voxels) and NeRFRegTr to S3_REG_STEPS
+S3_VIEWS, S3_IMG = 36, 128
+S3_NGP_STEPS = 512  # 512 and 1024 tried: every block extracts surface voxels at both
+S3_REG_STEPS = 8
+S3_LEVELS = 8
+S3_WIDTH = 32
+S3_CHECK_STEP = 1  # the step whose K1p and K2p calls are held against their plain versions
+S3_BASELINE_DRAWS = 1  # block orders the host-side baseline also registers (the twin's: 2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -426,6 +469,20 @@ def k1p_inputs(torch, src, slots: dict) -> dict:
     return inputs
 
 
+def k1p_slot_error(torch, got, want, idx, x, rows: int):
+    """(|got - want| elementwise, its largest ratio to the slot bound) of a
+    K1p result against its plain version on rows (idx, x): per slot hit k
+    times, 2 ((1 + 2^-8)^(k-1) - 1) sum|x| (see k1p_phase)."""
+    valid = (idx >= 0) & (idx < rows)
+    slot = idx[valid].long()
+    k = torch.bincount(slot, minlength=rows).float()[:, None]
+    abs_sum = torch.zeros(rows, x.shape[1], device=x.device).index_add_(0, slot,
+                                                                         x[valid].abs())
+    tol = 2.0 * torch.expm1(math.log1p(2.0**-8) * (k - 1).clamp(min=0)) * abs_sum
+    err = (got.float() - want.float()).abs()
+    return err, (err / tol.clamp(min=1e-30)).max().item()
+
+
 def k1p_phase(torch, dev) -> dict:
     """K1p against its plain version (the serial bf16 scatter) at the five
     cases of k1p_inputs, on two sets of rows.
@@ -471,13 +528,8 @@ def k1p_phase(torch, dev) -> dict:
         got = scatter_add_bf16(idx, x, rows, **kw)
         want = scatter_add_bf16_plain(idx, x, rows)  # the flag is false: the runs fit
         torch.cuda.synchronize()
-        k = torch.bincount(idx[valid].long(), minlength=rows).float()[:, None]
-        abs_sum = torch.zeros(rows, WIDTH, device=dev).index_add_(0, idx[valid].long(),
-                                                                  x[valid].abs())
-        tol = 2.0 * torch.expm1(math.log1p(2.0**-8) * (k - 1).clamp(min=0)) * abs_sum
-        err = (got.float() - want.float()).abs()
-        check(bool((err <= tol).all()), f"K1p rows={rows} run={run}: error over the slot bound")
-        ratio = (err / tol.clamp(min=1e-30)).max().item()
+        err, ratio = k1p_slot_error(torch, got, want, idx, x, rows)
+        check(ratio <= 1.0, f"K1p rows={rows} run={run}: error over the slot bound")
         max_err, worst = max(max_err, err.max().item()), max(worst, ratio)
         lib_idx, lib_src = idx[:n_valid].long(), x[:n_valid]  # in-range rows lead
         check(bool(valid[:n_valid].all()), "in-range rows lead")
@@ -892,32 +944,50 @@ def extract_phase(torch, trainer, cfg) -> None:
     check(bool(torch.isfinite(grid).all()), "voxel_grid.pt not finite")
 
 
-def _block_recorder(torch, record_step: int):
-    """Wrap NGPTrainer.train_iteration for the multi-block phase: each step's
-    (step, K1p launches, K2p launches, CUDA events) per trainer, and, in
-    step `record_step` of each trainer, each level's K2p call (its first
-    MB_LEVELS gathers) held bit for bit against index_select on the call's
-    own inputs. Returns (steps by trainer, checks by trainer, restore)."""
-    from dregnerf_tpu_torch.ops import packed_grid
+def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks=None):
+    """Wrap NGPTrainer.train_iteration for the multi-block and stage-3
+    fleet phases: each step's (step, K1p launches, K2p launches, CUDA
+    events, loss) per trainer, and, in step `record_step` of each trainer,
+    each level's K2p call (its first `levels` gathers) held bit for bit
+    against index_select on the call's own inputs. With a dict
+    `k1p_checks`, each level's K1p call of that step (its first `levels`)
+    is held against the plain serial bf16 scatter on its own inputs
+    (k1p_slot_error) and recorded there by trainer as (table shape, rows,
+    worst ratio to the slot bound). Returns (steps by trainer, checks by
+    trainer, restore)."""
+    from dregnerf_tpu_torch.ops import packed_grid, rle
     from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add_bf16
+    from dregnerf_tpu_torch.ops.scatter_add import _chosen, scatter_add_bf16, scatter_add_bf16_plain
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
     real_step, real_gather = NGPTrainer.train_iteration, packed_grid.gather_rows
+    real_scatter = scatter_add_bf16
     steps, checks, current = {}, {}, [None]
 
     def gather(table, idx):
         out = real_gather(table, idx)
         calls = checks.get(current[0])
-        if calls is not None and len(calls) < MB_LEVELS:
+        if calls is not None and len(calls) < levels:
             calls.append((tuple(table.shape), int(idx.numel()),
                           torch.equal(out, gather_rows_plain(table, idx))))
+        return out
+
+    def scatter(idx, src, table_rows, alt=None, count=None):
+        out = real_scatter(idx, src, table_rows, alt=alt, count=count)
+        calls = k1p_checks.get(current[0])
+        if calls is not None and len(calls) < levels:
+            rows_idx, rows_src = _chosen(idx, src, alt, count)
+            want = scatter_add_bf16_plain(rows_idx, rows_src, table_rows)
+            _, ratio = k1p_slot_error(torch, out, want, rows_idx, rows_src, table_rows)
+            calls.append(((table_rows, src.shape[1]), int(rows_idx.numel()), ratio))
         return out
 
     def step(self, i):
         key = id(self)
         if i == record_step:
             checks.setdefault(key, [])
+            if k1p_checks is not None:
+                k1p_checks.setdefault(key, [])
             current[0] = key
         before = (scatter_add_bf16.launches, gather_rows.launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -928,15 +998,19 @@ def _block_recorder(torch, record_step: int):
             current[0] = None
         end.record()
         steps.setdefault(key, []).append((i, scatter_add_bf16.launches - before[0],
-                                          gather_rows.launches - before[1], start, end))
+                                          gather_rows.launches - before[1], start, end,
+                                          out["loss"]))
         return out
 
     def restore():
         NGPTrainer.train_iteration = real_step
         packed_grid.gather_rows = real_gather
+        packed_grid.scatter_add_bf16 = rle.scatter_add_bf16 = real_scatter
 
     NGPTrainer.train_iteration = step
     packed_grid.gather_rows = gather
+    if k1p_checks is not None:
+        packed_grid.scatter_add_bf16 = rle.scatter_add_bf16 = scatter
     return steps, checks, restore
 
 
@@ -1162,6 +1236,147 @@ def multi_block_phase(torch, out_dir: str) -> dict:
                                                                        "winner")},
             "grid": trainers[0].grid, "model_dirs": model_dirs, "subject": subject,
             "reg_ckpt": ckpt}
+
+
+def stage3_fleet_phase(torch, out_dir: str) -> dict:
+    """The twin of the stage-3 experiment at full width and small depth
+    (see the module docstring): the scenes' shapes and the box scene's
+    RGBA, its stage1_and_2, stage3 and evaluate with K1p and K2p held
+    against their plain versions at L8F4's width, the regdata tree, finite
+    losses and the metrics files. Returns the launches, seconds and the
+    held-out pairs' errors."""
+    import numpy as np
+
+    from dregnerf_tpu_torch.datasets import fixtures
+    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
+    from dregnerf_tpu_torch.ops.scatter_add import scatter_add_bf16
+    from dregnerf_tpu_torch.runtime.ngp_trainer import OCC_UPDATE_INTERVAL
+    from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer
+    from dregnerf_tpu_torch.scripts.experiments import stage3_fleet as twin
+
+    knobs = twin.Knobs(scenes=2, test_scenes=1, ngp_iters=S3_NGP_STEPS, views=S3_VIEWS,
+                       img=S3_IMG, reg_iters=S3_REG_STEPS, baseline_draws=S3_BASELINE_DRAWS,
+                       work=os.path.join(out_dir, "stage3_fleet"),
+                       out=os.path.join(out_dir, "stage3_fleet_out"))
+    model = knobs.ngp_model()
+    check(model.grid.n_levels == S3_LEVELS and 8 * model.grid.n_features == S3_WIDTH
+          and model.grid.log2_table_size == 19 and model.grid.grad_accum == "bf16"
+          and model.grid.rle_step_u == 0.0, f"the twin's default blocks: {model.grid}")
+
+    shapes = [twin.scene_shapes(i) for i in range(knobs.scenes)]
+    kinds = [[np.shape(size) for _, size, _ in scene] for scene in shapes]
+    check(3 <= len(kinds[0]) <= 5 and all(k == () for k in kinds[0])
+          and 3 <= len(kinds[1]) <= 5 and all(k == (3,) for k in kinds[1]),
+          f"scene shapes: {kinds}")
+    t0 = time.perf_counter()
+    images, c2w = fixtures.render_views(S3_VIEWS, S3_IMG, seed=1, spheres=shapes[1])
+    want = np.stack([(fixtures._trace(*fixtures.view_rays(c, S3_IMG), shapes[1])
+                      .reshape(S3_IMG, S3_IMG, 4) * 255).astype(np.uint8) for c in c2w])
+    check(images.tobytes() == want.tobytes(), "the box scene's RGBA != _trace's")
+    check(float((images[..., 3] > 0).mean()) > 0.05, "the box scene covers no pixels")
+    print(f"stage3 fleet scenes: scene_00 {len(kinds[0])} spheres, scene_01 {len(kinds[1])} "
+          f"boxes; the box scene's {S3_VIEWS} RGBA views byte for byte _trace's "
+          f"({float((images[..., 3] > 0).mean()):.3f} of the pixels covered); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    k1p_checks = {}
+    steps, k2p_checks, restore = _block_recorder(torch, S3_CHECK_STEP, S3_LEVELS, k1p_checks)
+    reg_metrics, real_iteration = [], RegTrainer.train_iteration
+
+    def reg_iteration(self, item):
+        out = real_iteration(self, item)
+        reg_metrics.append(out)
+        return out
+
+    RegTrainer.train_iteration = reg_iteration
+    scatter_add_bf16.launches = gather_rows.launches = 0
+    try:
+        t1 = time.perf_counter()
+        reg_root = twin.stage1_and_2(knobs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ngp_launches = (scatter_add_bf16.launches, gather_rows.launches)
+        trainer, val_ds, test_scenes = twin.stage3(reg_root, knobs)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        result = twin.evaluate(trainer, val_ds, test_scenes, knobs)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    finally:
+        restore()
+        RegTrainer.train_iteration = real_iteration
+    seconds = {"stage1_and_2": t2 - t1, "stage3": t3 - t2, "evaluate": t4 - t3}
+    launches = {"scatter_add_bf16": scatter_add_bf16.launches, "gather_rows": gather_rows.launches}
+
+    check(len(steps) == 2 * knobs.scenes, f"{len(steps)} blocks trained")
+    ms, k2p_checked, k1p_checked = [], [], []
+    for key, rec in steps.items():
+        check([r[0] for r in rec] == list(range(S3_NGP_STEPS)), "stage3 fleet: block steps run")
+        steady = [r for r in rec if r[0] % OCC_UPDATE_INTERVAL]
+        bad = [(r[0], r[1], r[2]) for r in steady if (r[1], r[2]) != (S3_LEVELS, S3_LEVELS)]
+        check(not bad, f"stage3 fleet: steps without an occupancy update whose K1p/K2p launches "
+              f"are not ({S3_LEVELS}, {S3_LEVELS}): {bad[:8]}")
+        losses = torch.stack([r[5] for r in rec]).tolist()
+        check(all(map(math.isfinite, losses)), "stage3 fleet: a non-finite stage-1 loss")
+        ms.append(statistics.mean(r[3].elapsed_time(r[4]) for r in steady[-64:]))
+        k2p, k1p = k2p_checks.get(key, []), k1p_checks.get(key, [])
+        check(len(k2p) == S3_LEVELS and all(eq for _, _, eq in k2p)
+              and all(shape[1] == S3_WIDTH for shape, _, _ in k2p),
+              f"stage3 fleet: K2p against index_select at step {S3_CHECK_STEP}: {k2p}")
+        check(len(k1p) == S3_LEVELS and all(r <= 1.0 for _, _, r in k1p)
+              and all(shape[1] == S3_WIDTH for shape, _, _ in k1p),
+              f"stage3 fleet: K1p against its plain version at step {S3_CHECK_STEP}: {k1p}")
+        k2p_checked += k2p
+        k1p_checked += k1p
+
+    surface = {}
+    for scene in twin.scene_names(knobs):
+        frames = os.path.join(reg_root, "images", scene, "world_frame_transforms.json")
+        check(os.path.exists(frames), f"regdata: {frames}")
+        for k in range(2):
+            block = os.path.join(reg_root, "nerf_models", scene, f"block_{k}")
+            for rel in ("model/model.ckpt", "voxel_grid.pt", "voxel_mask.pt",
+                        "voxel_point_cloud.ply"):
+                check(os.path.getsize(os.path.join(block, rel)) > 0, f"regdata: {block}/{rel}")
+            surface[f"{scene}/block_{k}"] = int(
+                torch.load(os.path.join(block, "voxel_mask.pt")).numel())
+    check(all(n > 0 for n in surface.values()),
+          f"stage3 fleet: a block with no surface voxel at step {S3_NGP_STEPS}: {surface}")
+
+    check(len(reg_metrics) == S3_REG_STEPS, f"{len(reg_metrics)} stage-3 steps")
+    reg_losses = [{k: float(m[k]) for k in (*LOSS_NAMES, "skipped_nonfinite")}
+                  for m in reg_metrics]
+    check(all(math.isfinite(m[k]) for m in reg_losses for k in LOSS_NAMES)
+          and not any(m["skipped_nonfinite"] for m in reg_losses),
+          f"stage3 fleet: stage-3 losses {reg_losses}")
+    check(result is not None, "stage3 fleet: no held-out evaluation")
+    for name in ("metrics_test.json", "fgr_metrics_test.json", "stage1_psnr.json"):
+        check(os.path.exists(os.path.join(knobs.out, name)), f"stage3 fleet: {name} written")
+    pairs = {side: [{k: p.get(k) for k in ("scene", "draw", "RRE", "RTE", "RRE_icp", "RTE_icp",
+                                           "winner", "error")}
+                    for p in result[side]["pairs"]] for side in ("regtr", "fgr")}
+    check(len(pairs["regtr"]) == 2 and len(pairs["fgr"]) == S3_BASELINE_DRAWS
+          and all(math.isfinite(p["RRE"]) and math.isfinite(p["RTE"]) for p in pairs["regtr"]),
+          f"stage3 fleet: held-out pairs {pairs}")
+    with open(os.path.join(knobs.out, "stage1_psnr.json")) as f:
+        psnr = json.load(f)
+    print(f"stage3 fleet: {2 * knobs.scenes} L8F4 blocks of {S3_NGP_STEPS} steps, "
+          f"{statistics.mean(ms):.2f} ms/step device (steps without an occupancy update, last "
+          f"64 a block; {[round(x, 2) for x in ms]}), val PSNR {psnr}, surface voxels "
+          f"{surface}; K1p/K2p {S3_LEVELS}/{S3_LEVELS} in every such step, K2p bit for bit "
+          f"against index_select and K1p within its slot bound (worst ratio "
+          f"{max(r for _, _, r in k1p_checked):.4f}) on each level's call of step "
+          f"{S3_CHECK_STEP} of every block ({len(k2p_checked)} + {len(k1p_checked)} calls, "
+          f"rows {S3_WIDTH} wide); stage 3: {S3_REG_STEPS} steps, total loss "
+          f"{reg_losses[0]['total']:.4f} -> {reg_losses[-1]['total']:.4f}; launches in stage "
+          f"1-2 {ngp_launches}, in the whole run {launches}; seconds "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }", flush=True)
+    print(f"stage3 fleet held-out {test_scenes}: RegTr (both block orders) {pairs['regtr']}; "
+          f"baseline (first {S3_BASELINE_DRAWS}) {pairs['fgr']}", flush=True)
+    return {"launches": launches, "seconds": seconds, "ms_per_step": ms,
+            "surface_voxels": surface, "val_psnr": psnr, "pairs": pairs,
+            "k1p_worst_ratio": max(r for _, _, r in k1p_checked),
+            "index_checks": len(k2p_checked) + len(k1p_checked)}
 
 
 def novel_views_phase(torch, multi: dict, out_dir: str) -> dict:
@@ -1788,7 +2003,14 @@ def mesh_world1_phase(torch, out_dir: str, block_dir: str, root: str, subject: s
         opt.step(*seen[1])
         check(torch.equal(opt.flat, after), "mesh RegTr step: the update is not the optimizer's "
               "on the DP step's gradient")
-        out["reg_step"] = {"grad_rel_norm": grad_rel, "losses_rel": rel, "total": dp["total"]}
+        # the card's spread from run to run: the single-pair gradient twice
+        # at the same parameters (no update between)
+        _set_opt_state(reg, state)
+        repeat = [reg.pair_grads([batch])[0] for _ in range(2)]
+        repeat_rel = _rel_norm(torch, repeat[1], repeat[0])
+        out["reg_step"] = {"grad_rel_norm": grad_rel, "repeat_rel_norm": repeat_rel,
+                           "losses_rel": rel, "total": dp["total"]}
+        del repeat
         del reg, state, after, batch, seen
     finally:
         torch.backends.cudnn.allow_tf32 = True
@@ -1801,8 +2023,10 @@ def mesh_world1_phase(torch, out_dir: str, block_dir: str, root: str, subject: s
           f"({out['surface']['surface']} at S >= 0.5)"
           f", K2p launches {surface_launches}; sharded_attention on {n} tokens equal; RegTr DP "
           f"step: gradient within {out['reg_step']['grad_rel_norm']:.3e} of the single-pair "
-          f"step's norm, losses within {out['reg_step']['losses_rel']:.2e} relative, the update "
-          f"Adam's on it bit for bit", flush=True)
+          f"step's norm (two single-pair gradients at the same parameters: "
+          f"{out['reg_step']['repeat_rel_norm']:.3e} apart), losses within "
+          f"{out['reg_step']['losses_rel']:.2e} relative, the update Adam's on it bit for bit",
+          flush=True)
     return out
 
 
@@ -2436,9 +2660,7 @@ def classical_checks(torch, src, src_cols, tgt, tgt_cols, gt, regtr) -> None:
           f"{cpu_s:.3f} s)", flush=True)
     check(err[0] <= CLASSICAL_TOL["gicp"][0] and err[1] <= CLASSICAL_TOL["gicp"][1],
           f"global_colored_icp against the known pose: {err}")
-    check(all(map(_scores_close, card_scores, cpu_scores))
-          and np.argmin(card_scores) == np.argmin(cpu_scores),
-          f"coarse scores card against CPU: {card_scores} / {cpu_scores}")
+    race_parity(torch, np, args, kwargs, races[1][2][0], card_scores, cpu_scores)
 
     # best_global_registration(refine=True): host FGR/RANSAC seconds apart
     host_s = [0.0]
@@ -2474,10 +2696,139 @@ def classical_checks(torch, src, src_cols, tgt, tgt_cols, gt, regtr) -> None:
           f"best_global_registration against the known pose: {err}")
 
 
+def race_step(torch, args, pose, it: int, iters: int):
+    """Iteration `it` of `global_icp._coarse_race`'s icp_core run on its
+    recorded inputs `args`, from poses [K, 3, 4] on their device, with that
+    iteration's annealed gate: (next poses [K, 3, 4], the target each
+    source point chose [K, N], in the joint space as icp_core chooses it)."""
+    from dregnerf_tpu_torch.registration.icp import _sq_dist, icp_core
+
+    src, tgt, src_c, tgt_c, sv, tv, _, gate0, gate1 = args
+    k, dev = pose.shape[0], src.device
+    start = torch.as_tensor(gate0, dtype=torch.float32, device=dev).expand(k)
+    end = torch.as_tensor(gate1, dtype=torch.float32, device=dev).expand(k)
+    frac = torch.arange(iters, dtype=torch.float32, device=dev) / float(max(iters - 1, 1))
+    gate = start + (end - start) * frac[it]  # icp_core's gate row `it`, before its square
+    nxt, _, _ = icp_core(src, tgt, src_c, tgt_c, sv, tv, pose, gate, gate, iters=1)
+    moved = torch.matmul(src.float(), pose[:, :, :3].transpose(-1, -2)) + pose[:, None, :, 3]
+    tgt_f = torch.cat([tgt.float().expand(k, *tgt.shape),
+                       tgt_c.float().expand(k, *tgt_c.shape[-2:])], dim=-1)
+    tgt_sq = torch.where(tv, (tgt_f * tgt_f).sum(-1), torch.inf)
+    src_f = torch.cat([moved, src_c.float().expand(k, *src_c.shape[-2:])], dim=-1)
+    return nxt, _sq_dist(src_f, tgt_f, tgt_sq).argmin(dim=-1)
+
+
+def tie_gaps(np, args_cpu, pose, nn_a, nn_b) -> list:
+    """For each seed, the relative gaps (see TIE_REL_GAP) between the two
+    candidates of every source point on which the choices nn_a and nn_b
+    [K, N] differ, in f64 from the CPU's inputs, under poses [K, 3, 4]."""
+    src, tgt, src_c, tgt_c = (np.asarray(a.cpu(), np.float64) for a in args_cpu[:4])
+    pose, nn_a, nn_b = (np.asarray(x.cpu()) for x in (pose, nn_a, nn_b))
+    out = []
+    for k in range(pose.shape[0]):
+        rows = np.flatnonzero(nn_a[k] != nn_b[k])
+        x = np.concatenate([src[rows] @ pose[k, :, :3].astype(np.float64).T
+                            + pose[k, :, 3].astype(np.float64),
+                            src_c[rows] if src_c.ndim == 2 else src_c[k, rows]], -1)
+        cands = [np.concatenate([tgt[nn[k, rows]], tgt_c[nn[k, rows]]], -1)
+                 for nn in (nn_a, nn_b)]
+        d2 = [((x - y) ** 2).sum(-1) for y in cands]
+        size = (x * x).sum(-1) + np.maximum(*[(y * y).sum(-1) for y in cands])
+        out.append(np.abs(d2[0] - d2[1]) / size)
+    return out
+
+
+def judge_iteration(np, args_cpu, pose, card, cpu, seeds) -> list:
+    """Each of `seeds`' (passes, how, largest tie gap) for one iteration
+    that the card and the CPU ran from the same poses [K, 3, 4]: card and
+    cpu are (next poses, choices) of race_step. It passes on the poses
+    (within CLASSICAL_PARITY_TOL), or on a near-tie (the choices differ,
+    and only where the candidates lie within TIE_REL_GAP)."""
+    tol = CLASSICAL_PARITY_TOL
+    gaps = tie_gaps(np, args_cpu, pose, card[1], cpu[1])
+    out = []
+    for k in seeds:
+        rot, trans = pose_gap(np, card[0][k].cpu(), cpu[0][k].cpu())
+        worst = float(gaps[k].max()) if len(gaps[k]) else 0.0
+        if rot <= tol["rotation_deg"] and trans <= tol["translation"]:
+            out.append((True, "poses", worst))
+        elif len(gaps[k]) and worst <= TIE_REL_GAP:
+            out.append((True, "tie", worst))
+        else:
+            out.append((False, f"poses {rot:.3e} deg, {trans:.3e} apart; {len(gaps[k])} "
+                               f"choices differ", worst))
+    return out
+
+
+def race_parity(torch, np, args, kwargs, card_poses, card_scores, cpu_scores) -> None:
+    """The coarse race card against CPU, tie-aware. Scores: the CPU's score
+    of every card pose within the tolerance of the card's, and the card's
+    best seed among the CPU's best (no path in this). Paths: each seed
+    whose race scores differ between the devices is replayed iteration by
+    iteration from the card's poses (judge_iteration)."""
+    import inspect
+
+    from dregnerf_tpu_torch.registration import global_icp
+    from dregnerf_tpu_torch.registration.icp import score_pose_feat
+
+    args_cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    rescored = score_pose_feat(*args_cpu[:6], card_poses.cpu()).tolist()
+    best = int(np.argmin(card_scores))
+    check(all(map(_scores_close, card_scores, rescored)),
+          f"coarse race: the CPU's scores of the card's poses {rescored} against the card's "
+          f"{card_scores}")
+    check(_scores_close(min(rescored), rescored[best]),
+          f"coarse race: the card's best seed {best} scores {rescored[best]} on the CPU, the "
+          f"CPU's best {min(rescored)}")
+    replay = [k for k, (a, b) in enumerate(zip(card_scores, cpu_scores))
+              if not _scores_close(a, b)]
+    iters = kwargs.get("iters", inspect.signature(global_icp._coarse_race)
+                       .parameters["iters"].default)
+    kinds, worst = {"poses": 0, "tie": 0}, 0.0
+    if replay:
+        pose = args[6].float()
+        for it in range(iters):
+            card = race_step(torch, args, pose, it, iters)
+            cpu = race_step(torch, args_cpu, pose.cpu(), it, iters)
+            for k, (ok, how, gap) in zip(replay, judge_iteration(np, args_cpu, pose, card, cpu,
+                                                                 replay)):
+                check(ok, f"coarse race seed {k}, iteration {it}: the card and the CPU differ "
+                          f"from the same pose with no near-tie ({how}; largest gap {gap:.3e})")
+                kinds[how] += 1
+                worst = max(worst, gap)
+            pose = card[0]
+        end = max(pose_gap(np, pose[k].cpu(), card_poses[k].cpu())[0] for k in replay)
+        print(f"classical coarse race replay: seeds {replay}, {iters} iterations each: "
+              f"{kinds['poses']} passed on the poses, {kinds['tie']} on a near-tie; largest tie "
+              f"gap {worst:.3e} (stated {TIE_REL_GAP}); the replayed card path ends "
+              f"{end:.2e} deg from the race's", flush=True)
+    print(f"classical coarse race card against CPU: the CPU's scores of the card's poses within "
+          f"{max(abs(a - b) for a, b in zip(card_scores, rescored)):.2e}; best seed {best} "
+          f"(CPU {int(np.argmin(rescored))}); {len(replay)} seeds needed a replay, largest tie "
+          f"gap {worst:.3e}", flush=True)
+
+
 def _opt_state(trainer) -> list:
     """Copies of the trainer's parameters, moments and both counts."""
     opt = trainer.optimizer
     return [x.clone() for x in (opt.flat, opt.mu, opt.nu, opt.count, opt.schedule_count)]
+
+
+def parity_crop(np, item, centre=None):
+    """(the PARITY_R^3 crop of a pair item around `centre`, default the
+    occupied src voxel nearest their mean; the crop's low corner)."""
+    r = item["src_grid"].shape[0]
+    occ = np.argwhere(item["src_mask"].reshape(r, r, r))
+    if centre is None:
+        centre = occ[np.argmin(((occ - occ.mean(0)) ** 2).sum(1))]
+    lo = np.clip(np.asarray(centre) - PARITY_R // 2, 0, r - PARITY_R)
+    window = tuple(slice(a, a + PARITY_R) for a in lo)
+    crop = {"pose": item["pose"]}
+    for side in ("src", "tgt"):
+        crop[f"{side}_grid"] = np.ascontiguousarray(item[f"{side}_grid"][window])
+        crop[f"{side}_mask"] = np.ascontiguousarray(
+            item[f"{side}_mask"].reshape(r, r, r)[window].reshape(-1))
+    return crop, lo
 
 
 def reg_step_parity(torch, trainer, item, centre=None, moments: bool = True) -> dict:
@@ -2496,17 +2847,7 @@ def reg_step_parity(torch, trainer, item, centre=None, moments: bool = True) -> 
 
     from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, make_reg_model, to_device
 
-    r = item["src_grid"].shape[0]
-    occ = np.argwhere(item["src_mask"].reshape(r, r, r))
-    if centre is None:
-        centre = occ[np.argmin(((occ - occ.mean(0)) ** 2).sum(1))]
-    lo = np.clip(np.asarray(centre) - PARITY_R // 2, 0, r - PARITY_R)
-    window = tuple(slice(a, a + PARITY_R) for a in lo)
-    crop = {"pose": item["pose"]}
-    for side in ("src", "tgt"):
-        crop[f"{side}_grid"] = np.ascontiguousarray(item[f"{side}_grid"][window])
-        crop[f"{side}_mask"] = np.ascontiguousarray(
-            item[f"{side}_mask"].reshape(r, r, r)[window].reshape(-1))
+    crop, lo = parity_crop(np, item, centre)
     n_occ = int(crop["src_mask"].sum())
     check(n_occ >= 100, f"train parity crop holds {n_occ} occupied voxels")
     state = ("flat", "mu", "nu", "count", "schedule_count") if moments else ("flat",)
@@ -3247,6 +3588,8 @@ def main() -> int:
         marchers = timed("marchers", marcher_phase, torch, multi.pop("grid"), out_dir)
         fleet = timed("fleet", fleet_phase, torch, out_dir)
         torch.cuda.empty_cache()
+        s3 = timed("stage3 fleet", stage3_fleet_phase, torch, out_dir)
+        torch.cuda.empty_cache()
         block_dir = trainer.output_dir
         del trainer
         torch.cuda.empty_cache()
@@ -3264,7 +3607,7 @@ def main() -> int:
         fields = timed("fields", fields_phase, torch, dev, out_dir)
     print(json.dumps({"fields": fields}), flush=True)
     print(json.dumps({"fleet": {k: v for k, v in fleet.items() if k != "k2p_checked"},
-                      "mesh": mesh}), flush=True)
+                      "mesh": mesh, "stage3 fleet": s3}), flush=True)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     def entry(name, source, replaces, launches, k):
@@ -3277,6 +3620,7 @@ def main() -> int:
         return {"train defaults": default_launches[name],
                 "multi-block": multi["launches"][name],
                 "fleet": fleet["launches"][name],
+                "stage3-fleet": s3["launches"][name],
                 "mesh": mesh["launches"][name],
                 "compact": marchers["compact"]["launches"][name],
                 "quota": marchers["quota"]["launches"][name]}

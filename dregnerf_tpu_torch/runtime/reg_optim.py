@@ -11,7 +11,9 @@ The chain, as optax computes it:
   3. u + 1e-4 * param on every leaf (AdamW's decoupled decay);
   4. times -lr * 0.5^min(4, c // 34000) at the update of 0-based count c
      (optax.piecewise_constant_schedule with a halving at 34000 k,
-     k = 1..4: the rate floors at lr / 16, unlike StepLR);
+     k = 1..4: the rate floors at lr / 16, unlike StepLR), or under any
+     other {step: scale} schedule given (the stage-3 experiment halves at
+     1/2 and 3/4 of its run);
   5. param + u.
 The guard: with a nonfinite loss or gradient the parameters, both moments
 and both counts stay bit for bit as they were (JAX zeroes the gradient,
@@ -32,25 +34,34 @@ import torch
 MAX_GRAD_NORM = 0.1
 B1, B2, EPS = 0.9, 0.999, 1e-8
 WEIGHT_DECAY = 1e-4
-LR_BOUNDARIES = tuple(34000 * (k + 1) for k in range(4))
-LR_SCALE = 0.5
+LR_SCHEDULE = {34000 * (k + 1): 0.5 for k in range(4)}
 
 
-def learning_rate(lr: float, count: torch.Tensor) -> torch.Tensor:
-    """optax.piecewise_constant_schedule(lr, {34000 k: 0.5}) at `count`,
-    in f32 on count's device."""
+def run_sized_schedule(iters: int) -> dict:
+    """The halvings at 1/2 and 3/4 of a run of `iters` steps (a dict, so
+    equal boundaries merge into one, as in a Python dict literal)."""
+    return {int(iters * 0.5): 0.5, int(iters * 0.75): 0.5}
+
+
+def learning_rate(lr: float, count: torch.Tensor, schedule: dict | None = None) -> torch.Tensor:
+    """optax.piecewise_constant_schedule(lr, schedule) at `count`, in f32 on
+    count's device: lr times the scale of every boundary <= count, applied
+    in ascending order of the boundaries, as optax sorts them. Default
+    `LR_SCHEDULE`."""
     v = torch.full((), lr, dtype=torch.float32, device=count.device)
-    for threshold in LR_BOUNDARIES:
-        v = torch.where(count >= threshold, v * LR_SCALE, v)
+    for threshold, scale in sorted((LR_SCHEDULE if schedule is None else schedule).items()):
+        v = torch.where(count >= threshold, v * scale, v)
     return v
 
 
 class GuardedAdamW:
     """clip_by_global_norm(0.1) + AdamW(lr schedule, wd 1e-4) over `leaves`
-    (tensors that require grad), which become views of one flat buffer."""
+    (tensors that require grad), which become views of one flat buffer;
+    `schedule`, {step: scale}, as `learning_rate` takes it."""
 
-    def __init__(self, leaves: Sequence[torch.Tensor], lr: float):
+    def __init__(self, leaves: Sequence[torch.Tensor], lr: float, schedule: dict | None = None):
         self.lr = float(lr)
+        self.schedule = schedule
         self.leaves = list(leaves)
         self.numels = [t.numel() for t in self.leaves]
         with torch.no_grad():
@@ -93,7 +104,7 @@ class GuardedAdamW:
         nu_hat = nu / (1 - torch.pow(B2 * one, c))
         u = mu_hat / (torch.sqrt(nu_hat) + EPS)
         u = u + WEIGHT_DECAY * self.flat
-        u = -learning_rate(self.lr, self.schedule_count) * u
+        u = -learning_rate(self.lr, self.schedule_count, self.schedule) * u
         params = self.flat + u
 
         self.flat.copy_(torch.where(finite, params, self.flat))

@@ -234,6 +234,14 @@ class RegTrainer:
         self._dev_evictions = 0
         self._aug_gen = torch.Generator(device=self.device).manual_seed(config.seed + 77)
 
+    def set_lr_schedule(self, schedule: dict) -> None:
+        """A fresh optimizer over the parameters under the {step: scale}
+        schedule, with zero moments and counts (what JAX's experiment does
+        when it swaps in its run-sized chain and rebuilds its step)."""
+        from dregnerf_tpu_torch.runtime.reg_optim import GuardedAdamW
+
+        self.optimizer = GuardedAdamW(self.optimizer.leaves, self.config.lr, schedule)
+
     # ----------------------------------------------------------------- steps
     def _step(self, batches, visibility_fns=None, warped_visibility_fns=None) -> Dict:
         """Forward, losses and backward over the pairs `batches`, then the

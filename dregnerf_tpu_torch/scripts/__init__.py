@@ -1,0 +1,1 @@
+"""Command-line scripts of the port (twins of the repo's `scripts/`)."""
