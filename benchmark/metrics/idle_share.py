@@ -1,0 +1,7 @@
+"""The device's idle share of the traced window, in %: 1 - busy / wall."""
+
+
+def read(record, trace):
+    if trace is None or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
