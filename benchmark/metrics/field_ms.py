@@ -1,0 +1,9 @@
+"""Device-timeline ms a traced unit of the field's forward: encoder with K2p
+and the MLPs (`render.field`): from the stream reaching the span's first
+event to it reaching its last, so the device's wait for the stage's launches
+counts."""
+from benchmark.metrics.stage_spans import stage_ms
+
+
+def read(record, trace):
+    return stage_ms(record, trace, "field")

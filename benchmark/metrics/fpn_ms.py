@@ -1,0 +1,8 @@
+"""Device-timeline ms a traced unit of the 3D FPN of both sides (`regtr.fpn`):
+from the stream reaching the span's first event to it reaching its last, so
+the device's wait for the stage's launches counts."""
+from benchmark.metrics.stage_spans import stage_ms
+
+
+def read(record, trace):
+    return stage_ms(record, trace, "fpn")

@@ -44,6 +44,7 @@ from dregnerf_tpu_torch.ops.voxel_subsample import (
     hierarchical_subsample,
     masked_select_strided,
 )
+from dregnerf_tpu_torch.runtime import profiling
 
 
 def trilinear_resize(x: torch.Tensor, size) -> torch.Tensor:
@@ -129,35 +130,44 @@ class NeRFRegTr(nn.Module):
         """data: src_grid/tgt_grid [R, R, R, 7] f32, src_mask/tgt_mask [R^3]
         bool. Returns JAX's keys: per-layer conditioned features [L, 1, N, D],
         keypoints [N, 3], warped keypoints [L, N, 3], overlaps [L, N],
-        validity [N], 'pose' [L, 3, 4] and 'ds_level'."""
-        src_ds, tgt_ds, level = hierarchical_subsample(
-            self._side(data["src_grid"], data["src_mask"]),
-            self._side(data["tgt_grid"], data["tgt_mask"]),
-            self.num_downsample, self.init_subsample_cell, self.max_points)
+        validity [N], 'pose' [L, 3, 4] and 'ds_level'. Spans `regtr.fpn`,
+        `.subsample`, `.transformer`, `.heads`; counters `regtr.src_points`
+        and `regtr.tgt_points` (the subsampled counts) and `regtr.level`."""
+        with profiling.annotate("regtr.fpn"):
+            src = self._side(data["src_grid"], data["src_mask"])
+            tgt = self._side(data["tgt_grid"], data["tgt_mask"])
+        with profiling.annotate("regtr.subsample"):
+            src_ds, tgt_ds, level = hierarchical_subsample(
+                src, tgt, self.num_downsample, self.init_subsample_cell, self.max_points)
+        profiling.count("regtr.src_points", src_ds.count)
+        profiling.count("regtr.tgt_points", tgt_ds.count)
+        profiling.count("regtr.level", level)
 
-        k = self.num_tokens
-        src_xyz, tgt_xyz = src_ds.xyz[:k][None], tgt_ds.xyz[:k][None]  # [1, N, 3]
-        src_feats = src_ds.feats[:k][None].to(self.dtype)
-        tgt_feats = tgt_ds.feats[:k][None].to(self.dtype)
-        src_valid, tgt_valid = src_ds.valid[:k][None], tgt_ds.valid[:k][None]
+        with profiling.annotate("regtr.transformer"):
+            k = self.num_tokens
+            src_xyz, tgt_xyz = src_ds.xyz[:k][None], tgt_ds.xyz[:k][None]  # [1, N, 3]
+            src_feats = src_ds.feats[:k][None].to(self.dtype)
+            tgt_feats = tgt_ds.feats[:k][None].to(self.dtype)
+            src_valid, tgt_valid = src_ds.valid[:k][None], tgt_ds.valid[:k][None]
 
-        src_pe = self.pos_embed(src_xyz).to(self.dtype)
-        tgt_pe = self.pos_embed(tgt_xyz).to(self.dtype)
-        src_cond, tgt_cond = self.transformer_encoder(
-            src_feats, tgt_feats, src_valid, tgt_valid, src_pe, tgt_pe)  # [L, 1, N, D]
-        src_corr, tgt_corr, src_overlap, tgt_overlap = self.decoder(
-            src_cond, tgt_cond, src_xyz, tgt_xyz, src_valid, tgt_valid, src_pe, tgt_pe)
+            src_pe = self.pos_embed(src_xyz).to(self.dtype)
+            tgt_pe = self.pos_embed(tgt_xyz).to(self.dtype)
+            src_cond, tgt_cond = self.transformer_encoder(
+                src_feats, tgt_feats, src_valid, tgt_valid, src_pe, tgt_pe)  # [L, 1, N, D]
+        with profiling.annotate("regtr.heads"):
+            src_corr, tgt_corr, src_overlap, tgt_overlap = self.decoder(
+                src_cond, tgt_cond, src_xyz, tgt_xyz, src_valid, tgt_valid, src_pe, tgt_pe)
 
-        # per-layer weighted Kabsch over the correspondences of both directions, in f32
-        L = src_corr.shape[0]
-        src_xyz_l = src_xyz[None].expand(L, *src_xyz.shape)
-        tgt_xyz_l = tgt_xyz[None].expand(L, *tgt_xyz.shape)
-        corr_src = torch.cat([src_xyz_l, src_corr.float()], dim=-1)
-        corr_tgt = torch.cat([tgt_corr.float(), tgt_xyz_l], dim=-1)
-        corr_all = torch.cat([corr_src, corr_tgt], dim=2)  # [L, 1, 2N, 6]
-        w = torch.cat([src_overlap.float() * src_valid[None],
-                       tgt_overlap.float() * tgt_valid[None]], dim=2)  # [L, 1, 2N]
-        pose = weighted_rigid_transform(corr_all[..., :3], corr_all[..., 3:], w)
+            # per-layer weighted Kabsch over the correspondences of both directions, in f32
+            L = src_corr.shape[0]
+            src_xyz_l = src_xyz[None].expand(L, *src_xyz.shape)
+            tgt_xyz_l = tgt_xyz[None].expand(L, *tgt_xyz.shape)
+            corr_src = torch.cat([src_xyz_l, src_corr.float()], dim=-1)
+            corr_tgt = torch.cat([tgt_corr.float(), tgt_xyz_l], dim=-1)
+            corr_all = torch.cat([corr_src, corr_tgt], dim=2)  # [L, 1, 2N, 6]
+            w = torch.cat([src_overlap.float() * src_valid[None],
+                           tgt_overlap.float() * tgt_valid[None]], dim=2)  # [L, 1, 2N]
+            pose = weighted_rigid_transform(corr_all[..., :3], corr_all[..., 3:], w)
 
         return {
             "src_feats": src_cond, "tgt_feats": tgt_cond,

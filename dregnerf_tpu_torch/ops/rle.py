@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+from dregnerf_tpu_torch.runtime import profiling
 
 PAD_SLOT = -1
 SCAN_BLOCK = 256  # rows of the first level of `cumsum_rows`
@@ -106,11 +107,15 @@ def rle_scatter_add_safe(idx: torch.Tensor, vals: torch.Tensor, max_runs: int,
     exceeds max_runs, so max_runs may be a heuristic. The JAX package picks
     the branch with `lax.cond`; here one scatter gets both row sets and a
     flag on the device, and its kernel reads only the set the flag picks:
-    no host read of n_runs and no copy of either set."""
+    no host read of n_runs and no copy of either set. Counters: `rle.calls`,
+    and `rle.direct`, the calls whose flag sent the kernel to the direct
+    rows."""
     run_idx, run_sum, n_runs = run_length_segment_sum(idx, vals, max_runs)
     runs = (run_idx, run_sum.to(torch.float32).contiguous())
+    profiling.count("rle.calls", 1)
     if max_runs >= idx.shape[0]:  # n_runs <= n: the runs always fit
         return _scatter_runs(accum, runs, n_runs, table_rows)
     direct = (n_runs > max_runs, idx.to(torch.int32).contiguous(),
               vals.to(torch.float32).contiguous())
+    profiling.count("rle.direct", direct[0])
     return _scatter_runs(accum, runs, n_runs, table_rows, alt=direct)

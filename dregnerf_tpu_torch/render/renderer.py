@@ -17,6 +17,7 @@ from dregnerf_tpu_torch.ops.ray_march import (
     row_sample_positions,
     sample_positions,
 )
+from dregnerf_tpu_torch.runtime import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +54,9 @@ def render_rays(
     times: torch.Tensor | None = None,
 ) -> tuple[RenderOutput, dict]:
     """Render one ray bucket; returns (RenderOutput, aux) with aux
-    `n_samples` (live samples, the ray-bucket feedback) and `ray_counts`
-    (samples per ray, the alive-ray mask of the loss).
+    `n_samples` (live samples, the ray-bucket feedback), `ray_counts`
+    (samples per ray, the alive-ray mask of the loss) and `buffer_rows`
+    (the sample buffer's rows, a host int).
 
     Runs on `device` (default cuda; see dregnerf_tpu_torch.device), which
     must be where the inputs lie. Stratified jitter is an explicit [R, 1]
@@ -69,40 +71,48 @@ def render_rays(
     if config.march_compaction == "rows":
         # a ray cannot yield more than max_steps survivors
         k_per_ray = min(max(config.buffer_size // num_rays, 1), config.max_steps)
-        rows = march_rays_rows(
+        with profiling.annotate("render.march"):
+            rows = march_rays_rows(
+                origins, viewdirs, grid, aabb, config.contraction,
+                config.render_step_size, k_per_ray, config.max_steps,
+                config.near_plane, config.far_plane, stratified=stratified,
+                generator=generator, jitter=jitter)
+            positions, dirs = row_sample_positions(rows, origins, viewdirs)
+        with profiling.annotate("render.field"):
+            if times is not None:
+                t = times[:, None, None].expand(*rows.valid.shape, 1)
+                rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config, t=t)
+            else:
+                rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config)
+        with profiling.annotate("render.composite"):
+            sigmas = torch.where(rows.valid, sigmas.reshape(rows.valid.shape), 0.0)
+            out = composite_rows(rows, rgbs, sigmas, background=background)
+            ray_counts = rows.valid.sum(dim=1)
+        return out, {"n_samples": rows.num_samples, "ray_counts": ray_counts,
+                     "buffer_rows": rows.valid.numel()}
+
+    with profiling.annotate("render.march"):
+        packed = march_rays(
             origins, viewdirs, grid, aabb, config.contraction,
-            config.render_step_size, k_per_ray, config.max_steps,
+            config.render_step_size, config.buffer_size, config.max_steps,
             config.near_plane, config.far_plane, stratified=stratified,
-            generator=generator, jitter=jitter)
-        positions, dirs = row_sample_positions(rows, origins, viewdirs)
+            generator=generator, jitter=jitter, compaction=config.march_compaction,
+            k_cap=config.k_cap)
+        positions, dirs = sample_positions(packed, origins, viewdirs)
+    with profiling.annotate("render.field"):
         if times is not None:
-            t = times[:, None, None].expand(*rows.valid.shape, 1)
+            # a padding slot's ray id is num_rays: it takes the last ray's time
+            t = times[torch.clamp(packed.ray_id, max=num_rays - 1)][:, None]
             rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config, t=t)
         else:
             rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config)
-        sigmas = torch.where(rows.valid, sigmas.reshape(rows.valid.shape), 0.0)
-        out = composite_rows(rows, rgbs, sigmas, background=background)
-        return out, {"n_samples": rows.num_samples,
-                     "ray_counts": rows.valid.sum(dim=1)}
-
-    packed = march_rays(
-        origins, viewdirs, grid, aabb, config.contraction,
-        config.render_step_size, config.buffer_size, config.max_steps,
-        config.near_plane, config.far_plane, stratified=stratified,
-        generator=generator, jitter=jitter, compaction=config.march_compaction,
-        k_cap=config.k_cap)
-    positions, dirs = sample_positions(packed, origins, viewdirs)
-    if times is not None:
-        # a padding slot's ray id is num_rays: it takes the last ray's time
-        t = times[torch.clamp(packed.ray_id, max=num_rays - 1)][:, None]
-        rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config, t=t)
-    else:
-        rgbs, sigmas = field.forward(params, positions, dirs, aabb, model_config)
-    sigmas = torch.where(packed.valid, sigmas.reshape(-1), 0.0)
-    out = composite(packed, rgbs, sigmas, background=background)
-    ray_counts = torch.zeros(num_rays + 1, dtype=torch.int64, device=origins.device)
-    ray_counts.index_add_(0, packed.ray_id, packed.valid.to(torch.int64))
-    return out, {"n_samples": packed.num_samples, "ray_counts": ray_counts[:num_rays]}
+    with profiling.annotate("render.composite"):
+        sigmas = torch.where(packed.valid, sigmas.reshape(-1), 0.0)
+        out = composite(packed, rgbs, sigmas, background=background)
+        ray_counts = torch.zeros(num_rays + 1, dtype=torch.int64, device=origins.device)
+        ray_counts.index_add_(0, packed.ray_id, packed.valid.to(torch.int64))
+    return out, {"n_samples": packed.num_samples, "ray_counts": ray_counts[:num_rays],
+                 "buffer_rows": packed.valid.shape[0]}
 
 
 @torch.no_grad()

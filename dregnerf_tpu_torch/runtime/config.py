@@ -1,7 +1,7 @@
 """Argparse flags of the port's entry points (copy of the flags of
 dregnerf_tpu/runtime/config.py that the NGP trainer, its evaluator and the
 registration trainer and evaluator read: same names and defaults), plus
-`--device`.
+`--device` and `--profile_steps`.
 
 Every `--grad_accum` value trains, with or without `--rle_backward`, and
 every `--march_compaction`, `--field` and `--dataset`; `--fleet` trains
@@ -129,6 +129,10 @@ def config_parser(argv=None) -> argparse.Namespace:
                    help="hang watchdog of training: exit with code 86 when a step's "
                    "heartbeat is this many seconds stale, for a supervisor to restart "
                    "and resume from the latest checkpoint; 0 disables it")
+    p.add_argument("--profile_steps", type=str, default="",
+                   help="START:COUNT: run training steps START .. START+COUNT-1 under "
+                   "torch.profiler, writing a TensorBoard trace and the spans' spans.json "
+                   "to <output_dir>/profile (runtime/profiling.py); '' profiles none")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     return p.parse_args(argv)

@@ -65,6 +65,7 @@ from dregnerf_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     unflatten,
 )
+from dregnerf_tpu_torch.runtime import profiling
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -126,24 +127,29 @@ def step_loss(params, model_config, render_config: RenderConfig,
               timestamps: torch.Tensor | None = None):
     """(loss, metrics) of one step: Huber over alive rays / (n_alive * 3).
     With `timestamps` [N_img], each ray renders at its image's time."""
-    rgba = images[draws.img_id, draws.y, draws.x].to(torch.float32) / 255.0
-    if synthetic:
-        pixels = rgba[:, :3] * rgba[:, 3:4] + draws.bg * (1.0 - rgba[:, 3:4])
-    else:
-        pixels = rgba[:, :3]
-    rays = rays_from_pixels(draws.x, draws.y, K, c2ws[draws.img_id], opengl)
+    with profiling.annotate("ngp.rays"):
+        rgba = images[draws.img_id, draws.y, draws.x].to(torch.float32) / 255.0
+        if synthetic:
+            pixels = rgba[:, :3] * rgba[:, 3:4] + draws.bg * (1.0 - rgba[:, 3:4])
+        else:
+            pixels = rgba[:, :3]
+        rays = rays_from_pixels(draws.x, draws.y, K, c2ws[draws.img_id], opengl)
     out, aux = render_rays(params, model_config, grid, rays.origins, rays.viewdirs,
                            aabb, render_config, background=draws.bg,
                            stratified=True, jitter=draws.jitter, device=aabb.device,
                            field=field,
                            times=None if timestamps is None else timestamps[draws.img_id])
-    alive = (aux["ray_counts"] > 0).to(torch.float32)
-    n_alive = alive.sum()
-    denom = torch.clamp(n_alive, min=1.0) * 3.0
-    diff = out.rgb - pixels
-    loss = (huber(diff) * alive[:, None]).sum() / denom
-    sq = (diff.detach() ** 2 * alive[:, None]).sum() / denom
-    return loss, {"psnr": mse_to_psnr(sq), "sq": sq, "n_samples": aux["n_samples"],
+    profiling.count("ngp.live_samples", aux["n_samples"])
+    profiling.count("ngp.sample_buffer", aux["buffer_rows"])
+    with profiling.annotate("ngp.loss"):
+        alive = (aux["ray_counts"] > 0).to(torch.float32)
+        n_alive = alive.sum()
+        denom = torch.clamp(n_alive, min=1.0) * 3.0
+        diff = out.rgb - pixels
+        loss = (huber(diff) * alive[:, None]).sum() / denom
+        sq = (diff.detach() ** 2 * alive[:, None]).sum() / denom
+        psnr = mse_to_psnr(sq)
+    return loss, {"psnr": psnr, "sq": sq, "n_samples": aux["n_samples"],
                   "alive_rays": n_alive}
 
 
@@ -290,56 +296,64 @@ class NGPTrainer:
         """One training step (on `draws`, else on rays drawn here: the
         bucket's, or this rank's share of it under --mesh_shape); returns
         its metrics as device tensors (plus the ray bucket it ran with)."""
-        if step % OCC_UPDATE_INTERVAL == 0:
-            self.update_occupancy(step)
-        bucket = self.num_rays
-        if draws is None:
-            n = bucket if self.mesh is None else max(bucket // self.mesh.size, 1)
-            draws = draw_step_inputs(self.ray_generator, n, self.scene.num_images,
-                                     self.scene.height, self.scene.width, self.device)
-        if self.mesh is None:
-            loss, metrics = step_loss(
-                self.params, self.model_config, self.render_config, self.grid,
-                self.aabb, self.images, self.c2ws, self.K, draws,
-                self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
-            loss.backward()
-            metrics["loss"] = loss.detach()
-        else:
-            from dregnerf_tpu_torch.parallel.ngp_dp import dp_train_step
+        with profiling.annotate("ngp.step"):
+            if step % OCC_UPDATE_INTERVAL == 0:
+                with profiling.annotate("ngp.occupancy"):
+                    self.update_occupancy(step)
+            bucket = self.num_rays
+            if draws is None:
+                n = bucket if self.mesh is None else max(bucket // self.mesh.size, 1)
+                draws = draw_step_inputs(self.ray_generator, n, self.scene.num_images,
+                                         self.scene.height, self.scene.width, self.device)
+            if self.mesh is None:
+                loss, metrics = step_loss(
+                    self.params, self.model_config, self.render_config, self.grid,
+                    self.aabb, self.images, self.c2ws, self.K, draws,
+                    self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
+                with profiling.annotate("ngp.backward"):
+                    loss.backward()
+                metrics["loss"] = loss.detach()
+            else:
+                from dregnerf_tpu_torch.parallel.ngp_dp import dp_train_step
 
-            metrics = dp_train_step(
-                self.mesh, self.params, self.model_config, self.render_config, self.grid,
-                self.aabb, self.images, self.c2ws, self.K, draws, self.scene.synthetic,
-                self.scene.opengl, self.field, self.timestamps)
-        self.apply_gradients(step)
-
-        # ray bucket feedback from the count saved at the previous sync
-        if step % BATCH_SYNC_INTERVAL == 0:
-            prev = self._pending_n_samples
-            self._pending_n_samples = (bucket, _host_reader(metrics["n_samples"]))
-            if prev is not None:
-                prev_bucket, n_samples = prev[0], prev[1]()
-                if n_samples > 0:
-                    ideal = prev_bucket * self.config.sample_budget / n_samples
-                    new_bucket = 1 << int(round(math.log2(max(ideal, 1))))
-                    self.num_rays = int(np.clip(new_bucket, self.config.init_num_rays,
-                                                self.config.max_num_rays))
-        metrics["num_rays"] = bucket
-        return metrics
+                metrics = dp_train_step(
+                    self.mesh, self.params, self.model_config, self.render_config, self.grid,
+                    self.aabb, self.images, self.c2ws, self.K, draws, self.scene.synthetic,
+                    self.scene.opengl, self.field, self.timestamps)
+            with profiling.annotate("ngp.optimizer"):
+                self.apply_gradients(step)
+                # ray bucket feedback from the count saved at the previous sync
+                if step % BATCH_SYNC_INTERVAL == 0:
+                    prev = self._pending_n_samples
+                    self._pending_n_samples = (bucket, _host_reader(metrics["n_samples"]))
+                    if prev is not None:
+                        prev_bucket, n_samples = prev[0], prev[1]()
+                        if n_samples > 0:
+                            ideal = prev_bucket * self.config.sample_budget / n_samples
+                            new_bucket = 1 << int(round(math.log2(max(ideal, 1))))
+                            self.num_rays = int(np.clip(new_bucket, self.config.init_num_rays,
+                                                        self.config.max_num_rays))
+            metrics["num_rays"] = bucket
+            return metrics
 
     def train(self) -> None:
         """The step loop under the hang watchdog (a stale heartbeat exits the
         process with code 86 for a supervisor to resume it; --watchdog_s 0
         disables it); a step that fails for good saves a checkpoint first.
         The scalars' host read every n_tensorboard steps also keeps the
-        heartbeat honest: a wedged device blocks there."""
+        heartbeat honest: a wedged device blocks there. The steps of
+        --profile_steps run under profiling.trace (<output_dir>/profile)."""
         cfg = self.config
         start = self.load_checkpoint()
         t0 = time.time()
-        with Watchdog(cfg.watchdog_s, name=cfg.expname) as wd:
+        window = profiling.StepWindow(cfg.profile_steps,
+                                      os.path.join(self.output_dir, "profile"))
+        with Watchdog(cfg.watchdog_s, name=cfg.expname) as wd, window:
             for step in range(start, cfg.max_iterations):
+                window.begin(step)
                 metrics = run_with_retries(lambda: self.train_iteration(step),
                                            on_failure=lambda exc: self.save_checkpoint(step))
+                window.end(step)
                 self.step = step + 1
                 if step % cfg.n_tensorboard == 0:
                     self.log_scalars(step, {

@@ -20,8 +20,10 @@ computes); its metrics are the means, with the first pair's pose error.
 
 train() runs each step through the retry wrapper (an emergency checkpoint
 on a fatal error) under the hang watchdog (`--watchdog_s`;
-runtime/resilience.py). Scalars go to log.txt and log.jsonl, and with
-`--enable_tensorboard` to a tensorboardX event file under
+runtime/resilience.py), and the steps of `--profile_steps` (counted from
+0 by `iteration`) under profiling.trace (<output_dir>/profile). Scalars
+go to log.txt and log.jsonl, and with `--enable_tensorboard` to a
+tensorboardX event file under
 <out_dir>/logs/<expname>. `--enable_visdom` starts the live pose viewer
 (utils/pose_server.py) on `--visdom_port`; each validate() pushes the
 first pair it scores.
@@ -51,6 +53,7 @@ from dregnerf_tpu_torch.losses import registration as L
 from dregnerf_tpu_torch.losses.visibility import grid_visibility
 from dregnerf_tpu_torch.models.regtr import NeRFRegTr
 from dregnerf_tpu_torch.parallel.mesh import barrier, is_main
+from dregnerf_tpu_torch.runtime import profiling
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -91,58 +94,59 @@ def compute_losses(model: NeRFRegTr, infonce_W: torch.Tensor, batch: Dict[str, t
     call per side labels the keypoints and the warped keypoints together.
     Labels carry no gradient. The pose is in no loss."""
     pred = model(batch)
-    pose_gt = batch["pose"][:3, :4]
-    pose_gt_inv = se3.se3_inv(pose_gt)
-    src_kp, tgt_kp = pred["src_kp"], pred["tgt_kp"]  # [N, 3]
-    src_valid, tgt_valid = pred["src_valid"], pred["tgt_valid"]
-    src_warped, tgt_warped = pred["src_kp_warped"], pred["tgt_kp_warped"]  # [L, N, 3]
-    n_layers = src_warped.shape[0]
+    with profiling.annotate("regtr.losses"):
+        pose_gt = batch["pose"][:3, :4]
+        pose_gt_inv = se3.se3_inv(pose_gt)
+        src_kp, tgt_kp = pred["src_kp"], pred["tgt_kp"]  # [N, 3]
+        src_valid, tgt_valid = pred["src_valid"], pred["tgt_valid"]
+        src_warped, tgt_warped = pred["src_kp_warped"], pred["tgt_kp_warped"]  # [L, N, 3]
+        n_layers = src_warped.shape[0]
 
-    if visibility_fns is not None:
-        src_vis, tgt_vis = visibility_fns
-    else:
-        def src_vis(pts):
-            return grid_visibility(pts, batch["src_mask"], aabb, grid_resolution)
+        if visibility_fns is not None:
+            src_vis, tgt_vis = visibility_fns
+        else:
+            def src_vis(pts):
+                return grid_visibility(pts, batch["src_mask"], aabb, grid_resolution)
 
-        def tgt_vis(pts):
-            return grid_visibility(pts, batch["tgt_mask"], aabb, grid_resolution)
-    with torch.no_grad():
-        if warped_visibility_fns is not None:
-            src_wvis, tgt_wvis = warped_visibility_fns
-            src_gt, tgt_gt = src_vis(src_kp), tgt_vis(tgt_kp)
-            src_tilde, tgt_tilde = src_wvis(src_warped.detach()), tgt_wvis(tgt_warped.detach())
-        else:  # one call per side on [1 + L, N, 3]
-            src_labels = src_vis(torch.cat([src_kp[None], src_warped.detach()]))
-            tgt_labels = tgt_vis(torch.cat([tgt_kp[None], tgt_warped.detach()]))
-            src_gt, src_tilde = src_labels[0], src_labels[1:]
-            tgt_gt, tgt_tilde = tgt_labels[0], tgt_labels[1:]
+            def tgt_vis(pts):
+                return grid_visibility(pts, batch["tgt_mask"], aabb, grid_resolution)
+        with torch.no_grad():
+            if warped_visibility_fns is not None:
+                src_wvis, tgt_wvis = warped_visibility_fns
+                src_gt, tgt_gt = src_vis(src_kp), tgt_vis(tgt_kp)
+                src_tilde, tgt_tilde = src_wvis(src_warped.detach()), tgt_wvis(tgt_warped.detach())
+            else:  # one call per side on [1 + L, N, 3]
+                src_labels = src_vis(torch.cat([src_kp[None], src_warped.detach()]))
+                tgt_labels = tgt_vis(torch.cat([tgt_kp[None], tgt_warped.detach()]))
+                src_gt, src_tilde = src_labels[0], src_labels[1:]
+                tgt_gt, tgt_tilde = tgt_labels[0], tgt_labels[1:]
 
-    losses = {}
-    losses["overlap"] = L.overlap_bce(
-        torch.cat([pred["src_overlap"][-1], pred["tgt_overlap"][-1]]),
-        torch.cat([src_gt, tgt_gt]), torch.cat([src_valid, tgt_valid]))
-    losses["nerf_cont"] = 0.5 * (
-        L.nerf_consistency(src_tilde, src_gt.expand(n_layers, -1), src_valid)
-        + L.nerf_consistency(tgt_tilde, tgt_gt.expand(n_layers, -1), tgt_valid))
+        losses = {}
+        losses["overlap"] = L.overlap_bce(
+            torch.cat([pred["src_overlap"][-1], pred["tgt_overlap"][-1]]),
+            torch.cat([src_gt, tgt_gt]), torch.cat([src_valid, tgt_valid]))
+        losses["nerf_cont"] = 0.5 * (
+            L.nerf_consistency(src_tilde, src_gt.expand(n_layers, -1), src_valid)
+            + L.nerf_consistency(tgt_tilde, tgt_gt.expand(n_layers, -1), tgt_valid))
 
-    # InfoNCE radii scale with the subsample level's cell (never under the
-    # reference's 0.2), read from the model's level tensor on the device
-    cell = model.init_subsample_cell * torch.pow(2.0, pred["ds_level"].to(torch.float32))
-    r_p = torch.clamp(1.25 * cell, min=0.2)
-    src_warped_gt = se3.se3_transform(pose_gt, src_kp)
-    losses["feature"], n_match = L.infonce_loss(
-        infonce_W, pred["src_feats"][-1, 0].float(), pred["tgt_feats"][-1, 0].float(),
-        src_warped_gt, tgt_kp, src_valid, tgt_valid, r_p=r_p, r_n=2.0 * r_p,
-        return_stats=True)
-    losses["feature_matches"] = n_match.to(torch.float32)
+        # InfoNCE radii scale with the subsample level's cell (never under the
+        # reference's 0.2), read from the model's level tensor on the device
+        cell = model.init_subsample_cell * torch.pow(2.0, pred["ds_level"].to(torch.float32))
+        r_p = torch.clamp(1.25 * cell, min=0.2)
+        src_warped_gt = se3.se3_transform(pose_gt, src_kp)
+        losses["feature"], n_match = L.infonce_loss(
+            infonce_W, pred["src_feats"][-1, 0].float(), pred["tgt_feats"][-1, 0].float(),
+            src_warped_gt, tgt_kp, src_valid, tgt_valid, r_p=r_p, r_n=2.0 * r_p,
+            return_stats=True)
+        losses["feature_matches"] = n_match.to(torch.float32)
 
-    tgt_warped_gt = se3.se3_transform(pose_gt_inv, tgt_kp)
-    losses["corr"] = (
-        L.correspondence_loss(src_warped[-1], src_warped_gt, src_gt, src_valid, robust)
-        + L.correspondence_loss(tgt_warped[-1], tgt_warped_gt, tgt_gt, tgt_valid, robust))
+        tgt_warped_gt = se3.se3_transform(pose_gt_inv, tgt_kp)
+        losses["corr"] = (
+            L.correspondence_loss(src_warped[-1], src_warped_gt, src_gt, src_valid, robust)
+            + L.correspondence_loss(tgt_warped[-1], tgt_warped_gt, tgt_gt, tgt_valid, robust))
 
-    total = sum(losses[k] * LOSS_WEIGHTS[k] for k in LOSS_WEIGHTS)
-    return total, losses, pred
+        total = sum(losses[k] * LOSS_WEIGHTS[k] for k in LOSS_WEIGHTS)
+        return total, losses, pred
 
 
 def exact_visibility_fns(contexts, buffer_size: int = 1 << 16) -> tuple:
@@ -248,8 +252,9 @@ class RegTrainer:
         guarded update; the metrics as 0-dim device tensors."""
         grad, total, losses, pose = self.pair_grads(batches, visibility_fns,
                                                     warped_visibility_fns)
-        finite = self.optimizer.step(grad, total)
-        rre, rte = se3.pose_error(pose.float(), batches[0]["pose"][:3, :4])
+        with profiling.annotate("regtr.optimizer"):
+            finite = self.optimizer.step(grad, total)
+            rre, rte = se3.pose_error(pose.float(), batches[0]["pose"][:3, :4])
         return {**losses, "total": total, "R_error": rre, "t_error": rte,
                 "skipped_nonfinite": (~finite).to(torch.float32)}
 
@@ -264,8 +269,9 @@ class RegTrainer:
             total, losses, pred = compute_losses(
                 self.model, self.infonce_W, batch, self.aabb, self.grid_resolution,
                 self.config.robust_loss, visibility_fns, warped_visibility_fns)
-            g = self.optimizer.flat_grad(torch.autograd.grad(
-                total / n if n > 1 else total, leaves))
+            with profiling.annotate("regtr.backward"):
+                g = self.optimizer.flat_grad(torch.autograd.grad(
+                    total / n if n > 1 else total, leaves))
             grad = g if grad is None else grad + g
             totals.append(total.detach())
             all_losses.append({k: v.detach() for k, v in losses.items()})
@@ -355,16 +361,20 @@ class RegTrainer:
     def train_iteration(self, item: Dict) -> Dict:
         """One step on the pair `item`; under --mesh_shape, this rank's pair
         of the step (parallel/regtr_dp.py)."""
-        if "aug" in item:  # a get_raw item: the device-cached path
-            return self._step([self._augment(self._to_device_cached(item), item["aug"])])
-        batch = to_device(item, self.device)
-        if self.visibility == "exact":
-            return self._exact_step(batch, item)
-        if self.mesh is not None:
-            from dregnerf_tpu_torch.parallel.regtr_dp import dp_reg_step
+        cached = "aug" in item  # a get_raw item: the device-cached path
+        with profiling.annotate("regtr.step"):
+            with profiling.annotate("regtr.inputs"):
+                batch = (self._augment(self._to_device_cached(item), item["aug"]) if cached
+                         else to_device(item, self.device))
+            if cached:
+                return self._step([batch])
+            if self.visibility == "exact":
+                return self._exact_step(batch, item)
+            if self.mesh is not None:
+                from dregnerf_tpu_torch.parallel.regtr_dp import dp_reg_step
 
-            return dp_reg_step(self.mesh, self, batch)
-        return self._step([batch])
+                return dp_reg_step(self.mesh, self, batch)
+            return self._step([batch])
 
     def train_iteration_batch(self, items) -> Dict:
         """One step over several pairs (the gradient of their mean loss)."""
@@ -400,7 +410,9 @@ class RegTrainer:
             print(f"[reg_trainer] device-resident grid cache on (<= {self._dev_cache_size} "
                   "blocks, augmentation on the device)", flush=True)
         deadline = self.train_deadline
-        with Watchdog(cfg.watchdog_s, name=cfg.expname) as wd:
+        window = profiling.StepWindow(cfg.profile_steps,
+                                      os.path.join(self.output_dir, "profile"))
+        with Watchdog(cfg.watchdog_s, name=cfg.expname) as wd, window:
             while self.iteration < max_iterations:
                 if deadline is not None and time.time() >= deadline:
                     print(f"[reg_trainer] train deadline reached at iteration "
@@ -412,6 +424,7 @@ class RegTrainer:
                 for i in order:
                     if self.mesh is not None:  # this rank's pair only is read
                         i = i[self.mesh.rank]
+                    window.begin(self.iteration)
                     if i.ndim:
                         metrics = run_with_retries(
                             lambda i=i: self.train_iteration_batch(
@@ -421,6 +434,7 @@ class RegTrainer:
                         metrics = run_with_retries(
                             lambda i=i: self.train_iteration(fetch(int(i))),
                             on_failure=lambda exc: self.save_checkpoint())
+                    window.end(self.iteration)
                     self.iteration += 1
                     if self.iteration % cfg.n_tensorboard == 0:
                         self.log_scalars(metrics, time.time() - t0)

@@ -1,6 +1,6 @@
 """The port's runtime and utility modules against the JAX package's, on the
 CPU: resilience (retries, the watchdog, the NaN guard), the scalar logger,
-profiling, the checkpoint exporter, the pose viewer, the sampler, the
+profiling (the port's own span store), the checkpoint exporter, the pose viewer, the sampler, the
 feature colours, the mesh export; and the NGP trainer's train() logging in
 JAX's format under the watchdog.
 
@@ -20,7 +20,6 @@ import torch
 
 from dregnerf_tpu.runtime import export_torch as jexport
 from dregnerf_tpu.runtime import logging as jlogging
-from dregnerf_tpu.runtime import profiling as jprofiling
 from dregnerf_tpu.runtime import resilience as jres
 from dregnerf_tpu.utils import feature_visualizer as jfeat
 from dregnerf_tpu.utils import pose_server as jpose
@@ -206,21 +205,27 @@ def test_scalar_logger_without_tensorboardx_says_so(tmp_path, monkeypatch, capsy
 
 # ------------------------------------------------------------------ profiling
 
-def test_phase_timer_matches_jax(monkeypatch):
-    summaries = []
-    for module in (pprofiling, jprofiling):
-        clock = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.0, 3.0, 3.125])
-        monkeypatch.setattr(module.time, "perf_counter", lambda: next(clock))
-        timer = module.PhaseTimer()
+def test_span_store_counts_calls_and_host_ms(monkeypatch):
+    """The port's own span store (the JAX package has none): calls and host
+    ms of each span over a patched clock, counters of host ints and device
+    scalars summed when read, and reset."""
+    clock = iter([0, 250_000, 1_000_000, 1_500_000, 2_000_000, 2_000_000, 3_000_000,
+                  3_125_000])
+    monkeypatch.setattr(pprofiling.time, "perf_counter_ns", lambda: next(clock))
+    pprofiling.reset()
+    with torch.profiler.profile():
         for name in ("step", "step", "val", "io"):
-            with timer.phase(name):
-                pass
-        summaries.append((timer.summary(), dict(timer.totals), dict(timer.counts)))
-        timer.reset()
-        assert not timer.totals and not timer.counts
-        monkeypatch.undo()
-    assert summaries[0] == summaries[1]
-    assert summaries[0][2] == {"step": 2, "val": 1, "io": 1}
+            with pprofiling.annotate(name):
+                pprofiling.count("rows", 3)
+                pprofiling.count("live", torch.tensor(2))
+    snap = pprofiling.snapshot()
+    assert snap["spans"] == {"step": {"calls": 2, "host_ms": 0.75, "device_ms": None},
+                             "val": {"calls": 1, "host_ms": 0.0, "device_ms": None},
+                             "io": {"calls": 1, "host_ms": 0.125, "device_ms": None}}
+    assert snap["counters"] == {"rows": 12, "live": 8}
+    assert pprofiling.snapshot() == snap  # a second read sums nothing twice
+    pprofiling.reset()
+    assert pprofiling.snapshot() == {"spans": {}, "counters": {}}
 
 
 def test_trace_writes_a_trace_with_the_annotation(tmp_path):
@@ -231,6 +236,10 @@ def test_trace_writes_a_trace_with_the_annotation(tmp_path):
     files = list(tmp_path.rglob("*.pt.trace.json"))
     assert len(files) == 1
     assert "port_annotated_region" in files[0].read_text()
+    spans = json.loads((tmp_path / "spans.json").read_text())
+    assert spans == {"spans": {"port_annotated_region": {
+        "calls": 1, "host_ms": spans["spans"]["port_annotated_region"]["host_ms"],
+        "device_ms": None}}, "counters": {}}
 
 
 # --------------------------------------------------------------------- export
