@@ -2981,8 +2981,9 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
           f"{trainer._dev_uploads}", flush=True)
     del start, moved
 
+    item = train_ds.get_raw(0)  # an eager step: a CUDA graph's replay dispatches no operator
     with FlopCounterMode(display=False) as counter:
-        trainer.train_iteration(train_ds.get_raw(0))
+        trainer._step([trainer._augment(trainer._to_device_cached(item), item["aug"])])
     flops = counter.get_total_flops()
     bound = flops / BF16_FLOPS * 1e3
     mean_ms = statistics.mean(step_ms)

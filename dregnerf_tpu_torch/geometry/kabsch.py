@@ -18,6 +18,14 @@ def weighted_rigid_transform(a: torch.Tensor, b: torch.Tensor, weights: torch.Te
     Returns [..., 3, 4] T with T(a) ~= b; finite when all weights are 0,
     NaN when an input is not finite.
     """
+    return rigid_from_moments(*weighted_moments(a, b, weights, eps))
+
+
+def weighted_moments(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weighted centroids [..., 3] of a and b and their cross-covariance
+    [..., 3, 3]: `weighted_rigid_transform` before its 3x3 solve, with no
+    host read (a CUDA graph can hold it; the solve cannot)."""
     a, b = a.float(), b.float()
     w = weights.float().clamp(min=0.0)
     w_norm = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=eps)
@@ -27,7 +35,14 @@ def weighted_rigid_transform(a: torch.Tensor, b: torch.Tensor, weights: torch.Te
     a_c = a - centroid_a[..., None, :]
     b_c = b - centroid_b[..., None, :]
     cov = torch.einsum("...ni,...n,...nj->...ij", a_c, w_norm, b_c)
+    return centroid_a, centroid_b, cov
 
+
+def rigid_from_moments(centroid_a: torch.Tensor, centroid_b: torch.Tensor,
+                       cov: torch.Tensor) -> torch.Tensor:
+    """The [..., 3, 4] transform of `weighted_moments`' output: the SVD of the
+    covariance, the reflection fix, the translation. cuSOLVER's SVD reads its
+    convergence flags on the host, so on the card this waits for the device."""
     # a nonfinite input gives a NaN transform, as JAX's SVD does (LAPACK's
     # raises instead): the trainer's guard then skips the step
     finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)[..., None, None]

@@ -24,10 +24,14 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6) -> torch
 
 
 def overlap_bce(pred_prob: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked BCE on probabilities. pred_prob/gt/mask: [N]."""
-    lo, hi = torch.tensor([1e-6, 1.0 - 1e-6], dtype=pred_prob.dtype,
-                          device=pred_prob.device).unbind()
-    p = torch.minimum(torch.maximum(pred_prob, lo), hi)
+    """Masked BCE on probabilities, in f32 whatever pred's dtype: in bf16 the
+    upper bound 1 - 1e-6 would round to 1, and a prediction saturated at 1
+    with gt 1 would give 0 * log(0) = NaN. pred_prob/gt/mask: [N]."""
+    # the bounds filled on the device: a tensor built from Python numbers is
+    # copied from the host, which waits for the device
+    lo, hi = (torch.full((), v, dtype=torch.float32, device=pred_prob.device)
+              for v in (1e-6, 1.0 - 1e-6))
+    p = torch.minimum(torch.maximum(pred_prob.float(), lo), hi)
     bce = -(gt * torch.log(p) + (1.0 - gt) * torch.log(1.0 - p))
     return masked_mean(bce, mask)
 
@@ -102,7 +106,7 @@ def infonce_loss(W: torch.Tensor, anchor_feat: torch.Tensor, positive_feat: torc
 
     ignore = (d < r_n).scatter(1, idx1, False)  # out of place: `d` stays intact
     ignore = ignore | ~positive_valid[None, :]
-    neg = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+    neg = torch.full((), -1e9, dtype=logits.dtype, device=logits.device)
     masked_logits = torch.where(ignore, neg, logits)
 
     pos_logit = masked_logits.gather(1, idx1)[:, 0]

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dregnerf_tpu_torch.geometry.kabsch import weighted_rigid_transform
+from dregnerf_tpu_torch.geometry.kabsch import rigid_from_moments, weighted_moments
 from dregnerf_tpu_torch.models.layers import Conv3d, GroupNorm, LayerNorm, Linear
 from dregnerf_tpu_torch.models.pos_embed import (
     PositionEmbeddingCoordsSine,
@@ -126,13 +126,19 @@ class NeRFRegTr(nn.Module):
         return PointSet(xyz=xyz_flat[idx] * valid[:, None], feats=sel * valid[:, None],
                         valid=valid, count=mask.sum().to(torch.int32))
 
-    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, data: Dict[str, torch.Tensor],
+                solve_pose: bool = True) -> Dict[str, torch.Tensor]:
         """data: src_grid/tgt_grid [R, R, R, 7] f32, src_mask/tgt_mask [R^3]
         bool. Returns JAX's keys: per-layer conditioned features [L, 1, N, D],
         keypoints [N, 3], warped keypoints [L, N, 3], overlaps [L, N],
         validity [N], 'pose' [L, 3, 4] and 'ds_level'. Spans `regtr.fpn`,
         `.subsample`, `.transformer`, `.heads`; counters `regtr.src_points`
-        and `regtr.tgt_points` (the subsampled counts) and `regtr.level`."""
+        and `regtr.tgt_points` (the subsampled counts) and `regtr.level`.
+
+        solve_pose=False leaves the per-layer Kabsch at its moments:
+        'pose_moments' (`weighted_moments`' three tensors, [L, 1, ...]) in
+        the place of 'pose', for a caller that solves them later
+        (`rigid_from_moments`), as a CUDA graph of the training step does."""
         with profiling.annotate("regtr.fpn"):
             src = self._side(data["src_grid"], data["src_mask"])
             tgt = self._side(data["tgt_grid"], data["tgt_mask"])
@@ -167,7 +173,9 @@ class NeRFRegTr(nn.Module):
             corr_all = torch.cat([corr_src, corr_tgt], dim=2)  # [L, 1, 2N, 6]
             w = torch.cat([src_overlap.float() * src_valid[None],
                            tgt_overlap.float() * tgt_valid[None]], dim=2)  # [L, 1, 2N]
-            pose = weighted_rigid_transform(corr_all[..., :3], corr_all[..., 3:], w)
+            moments = weighted_moments(corr_all[..., :3], corr_all[..., 3:], w)
+            pose = {"pose": rigid_from_moments(*moments)[:, 0]} if solve_pose else {
+                "pose_moments": moments}
 
         return {
             "src_feats": src_cond, "tgt_feats": tgt_cond,
@@ -175,7 +183,7 @@ class NeRFRegTr(nn.Module):
             "src_kp_warped": src_corr[:, 0], "tgt_kp_warped": tgt_corr[:, 0],
             "src_overlap": src_overlap[:, 0], "tgt_overlap": tgt_overlap[:, 0],
             "src_valid": src_valid[0], "tgt_valid": tgt_valid[0],
-            "pose": pose[:, 0], "ds_level": level,
+            **pose, "ds_level": level,
         }
 
 

@@ -10,7 +10,10 @@
     graph is being captured).
   * `count(name, value)`: a counter, on under the same gate: a host int,
     or a device scalar the step already computes (kept by reference and
-    summed when read, so that counting adds no device operation).
+    summed when read, so that counting adds no device operation). Inside
+    `collect(sink)` a count goes to the sink instead, gate or no gate: a
+    CUDA graph's body packs its counters into its outputs that way, and
+    counts them after each replay.
   * `snapshot()` / `reset()`: the store's spans and counters.
   * `trace(logdir)`: a torch.profiler trace of a code region for
     TensorBoard's profiler, with the store's snapshot beside it in
@@ -184,11 +187,28 @@ def annotate(name: str):
     return _Span(name)
 
 
+_SINKS: list = []  # the dicts of the open `collect` blocks, innermost last
+
+
 def count(name: str, value) -> None:
     """Adds `value` (a host int, or a device scalar the caller already
-    computed) to the counter `name` while a profiler records."""
-    if torch.autograd._profiler_enabled():
+    computed) to the counter `name` while a profiler records, or to the
+    innermost open `collect` block's sink."""
+    if _SINKS:
+        _SINKS[-1].setdefault(name, []).append(value)
+    elif torch.autograd._profiler_enabled():
         _STORE.counters.setdefault(name, []).append(value)
+
+
+@contextlib.contextmanager
+def collect(sink: dict) -> Iterator[dict]:
+    """Within the block, `count` puts each value in `sink` ({name: [values]})
+    and not in the store, whether or not a profiler records."""
+    _SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _SINKS.pop()
 
 
 def snapshot() -> dict:

@@ -53,7 +53,7 @@ from dregnerf_tpu_torch.losses import registration as L
 from dregnerf_tpu_torch.losses.visibility import grid_visibility
 from dregnerf_tpu_torch.models.regtr import NeRFRegTr
 from dregnerf_tpu_torch.parallel.mesh import barrier, is_main
-from dregnerf_tpu_torch.runtime import profiling
+from dregnerf_tpu_torch.runtime import profiling, reg_graph
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -83,9 +83,10 @@ def to_device(item: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 def compute_losses(model: NeRFRegTr, infonce_W: torch.Tensor, batch: Dict[str, torch.Tensor],
                    aabb: torch.Tensor, grid_resolution: int, robust: bool = True,
                    visibility_fns: tuple | None = None,
-                   warped_visibility_fns: tuple | None = None):
+                   warped_visibility_fns: tuple | None = None, solve_pose: bool = True):
     """The four losses; returns (total, losses, pred). `losses` also holds
-    `feature_matches`, a diagnostic outside the total.
+    `feature_matches`, a diagnostic outside the total. `solve_pose` goes to
+    the model's forward.
 
     visibility_fns: optional (src, tgt) callables points [..., 3] -> labels
     [...]; default the voxel-mask lookup. warped_visibility_fns: optional
@@ -93,7 +94,7 @@ def compute_losses(model: NeRFRegTr, infonce_W: torch.Tensor, batch: Dict[str, t
     nerf-consistency term, which carries no gradient); without them one
     call per side labels the keypoints and the warped keypoints together.
     Labels carry no gradient. The pose is in no loss."""
-    pred = model(batch)
+    pred = model(batch, solve_pose=solve_pose)
     with profiling.annotate("regtr.losses"):
         pose_gt = batch["pose"][:3, :4]
         pose_gt_inv = se3.se3_inv(pose_gt)
@@ -172,7 +173,16 @@ class RegTrainer:
     """Runs on `device` (default: the config's --device, else cuda).
     `model` replaces the config's NeRFRegTr (a narrower one in tests); its
     weights are drawn with flax's initializers from the config's seed,
-    unless a checkpoint is loaded."""
+    unless a checkpoint is loaded.
+
+    On the card, the device-cached step at batch 1 with grid labels and no
+    mesh runs as a CUDA graph (runtime/reg_graph.py); `graph_captures` and
+    `graph_replays` count its captures and replays."""
+
+    # class-level, so that a trainer made without __init__ reads them too
+    _graph = None  # the device-cached step's reg_graph.StepGraph
+    graph_captures = 0
+    graph_replays = 0
 
     def __init__(self, config, train_dataset, val_dataset, output_dir: Optional[str] = None,
                  model: Optional[NeRFRegTr] = None, device=None):
@@ -244,31 +254,44 @@ class RegTrainer:
         when it swaps in its run-sized chain and rebuilds its step)."""
         from dregnerf_tpu_torch.runtime.reg_optim import GuardedAdamW
 
+        self._graph = None  # it updates the old optimizer's state
         self.optimizer = GuardedAdamW(self.optimizer.leaves, self.config.lr, schedule)
 
     # ----------------------------------------------------------------- steps
-    def _step(self, batches, visibility_fns=None, warped_visibility_fns=None) -> Dict:
+    def _step(self, batches, visibility_fns=None, warped_visibility_fns=None,
+              solve_pose: bool = True) -> Dict:
         """Forward, losses and backward over the pairs `batches`, then the
-        guarded update; the metrics as 0-dim device tensors."""
+        guarded update; the metrics as 0-dim device tensors. With
+        `solve_pose` False (the CUDA graph's body) the first pair's Kabsch
+        moments, `pose_moments`, stand where R_error and t_error would."""
         grad, total, losses, pose = self.pair_grads(batches, visibility_fns,
-                                                    warped_visibility_fns)
+                                                    warped_visibility_fns, solve_pose)
         with profiling.annotate("regtr.optimizer"):
             finite = self.optimizer.step(grad, total)
-            rre, rte = se3.pose_error(pose.float(), batches[0]["pose"][:3, :4])
-        return {**losses, "total": total, "R_error": rre, "t_error": rte,
+            errors = (self.pose_metrics(pose, batches[0]["pose"]) if solve_pose
+                      else {"pose_moments": pose})
+        return {**losses, "total": total, **errors,
                 "skipped_nonfinite": (~finite).to(torch.float32)}
 
-    def pair_grads(self, batches, visibility_fns=None, warped_visibility_fns=None):
+    @staticmethod
+    def pose_metrics(pose: torch.Tensor, pose_gt: torch.Tensor) -> Dict:
+        """R_error (degrees) and t_error of a predicted [3, 4] pose."""
+        rre, rte = se3.pose_error(pose.float(), pose_gt[:3, :4])
+        return {"R_error": rre, "t_error": rte}
+
+    def pair_grads(self, batches, visibility_fns=None, warped_visibility_fns=None,
+                   solve_pose: bool = True):
         """Forward, losses and backward over the pairs `batches`: (the flat
         gradient of their mean total, the total, the losses (means over the
-        pairs), the first pair's predicted pose)."""
+        pairs), the first pair's predicted pose, or with `solve_pose` False
+        its per-layer Kabsch moments)."""
         n = len(batches)
         leaves = self.optimizer.leaves
         grad, totals, all_losses, pose = None, [], [], None
         for batch in batches:
             total, losses, pred = compute_losses(
                 self.model, self.infonce_W, batch, self.aabb, self.grid_resolution,
-                self.config.robust_loss, visibility_fns, warped_visibility_fns)
+                self.config.robust_loss, visibility_fns, warped_visibility_fns, solve_pose)
             with profiling.annotate("regtr.backward"):
                 g = self.optimizer.flat_grad(torch.autograd.grad(
                     total / n if n > 1 else total, leaves))
@@ -276,15 +299,21 @@ class RegTrainer:
             totals.append(total.detach())
             all_losses.append({k: v.detach() for k, v in losses.items()})
             if pose is None:
-                pose = pred["pose"][-1].detach()
+                pose = (pred["pose"][-1].detach() if solve_pose
+                        else tuple(m.detach() for m in pred["pose_moments"]))
         total = totals[0] if n == 1 else torch.stack(totals).mean()
         losses = all_losses[0] if n == 1 else {
             k: torch.stack([ls[k] for ls in all_losses]).mean() for k in all_losses[0]}
         return grad, total, losses, pose
 
     def _to_device_cached(self, item: Dict) -> Dict[str, torch.Tensor]:
-        """The batch of an item with cache keys: grids and masks LRU-cached
-        on the device (uploaded once per block while it stays cached)."""
+        """The batch of an item with cache keys: `_cached_sides` and the pose."""
+        return {**self._cached_sides(item),
+                "pose": torch.as_tensor(item["pose"], device=self.device)}
+
+    def _cached_sides(self, item: Dict) -> Dict[str, torch.Tensor]:
+        """The grids and masks of an item with cache keys, LRU-cached on the
+        device (uploaded once per block while it stays cached)."""
         def dev(key, grid, mask):
             hit = self._dev_cache.pop(key, None)
             if hit is None:
@@ -303,17 +332,20 @@ class RegTrainer:
 
         sg, sm = dev(item["src_cache_key"], item["src_grid"], item["src_mask"])
         tg, tm = dev(item["tgt_cache_key"], item["tgt_grid"], item["tgt_mask"])
-        return {"src_grid": sg, "src_mask": sm, "tgt_grid": tg, "tgt_mask": tm,
-                "pose": torch.as_tensor(item["pose"], device=self.device)}
+        return {"src_grid": sg, "src_mask": sm, "tgt_grid": tg, "tgt_mask": tm}
+
+    def _jitter(self, aug: Dict) -> tuple[float, float]:
+        """The (scale, clip) of an item's jitter; scale 0 when it asks for none."""
+        ds = self.train_dataset
+        js = float(getattr(ds, "jitter_scale", 0.005)) if aug.get("jitter", True) else 0.0
+        return js, float(getattr(ds, "jitter_clip", 0.05))
 
     def _augment(self, batch: Dict, aug: Dict) -> Dict:
         """`device_augment` of both sides (jitter noise from the trainer's
         device generator unless the item asks for no jitter)."""
         from dregnerf_tpu_torch.datasets.register_pairs import device_augment
 
-        ds = self.train_dataset
-        js = float(getattr(ds, "jitter_scale", 0.005)) if aug.get("jitter", True) else 0.0
-        clip = float(getattr(ds, "jitter_clip", 0.05))
+        js, clip = self._jitter(aug)
         out = dict(batch)
         for side in ("src", "tgt"):
             grid, mask = batch[f"{side}_grid"], batch[f"{side}_mask"]
@@ -363,6 +395,8 @@ class RegTrainer:
         of the step (parallel/regtr_dp.py)."""
         cached = "aug" in item  # a get_raw item: the device-cached path
         with profiling.annotate("regtr.step"):
+            if cached and self._graphed():
+                return self._graph_step(item)
             with profiling.annotate("regtr.inputs"):
                 batch = (self._augment(self._to_device_cached(item), item["aug"]) if cached
                          else to_device(item, self.device))
@@ -375,6 +409,26 @@ class RegTrainer:
 
                 return dp_reg_step(self.mesh, self, batch)
             return self._step([batch])
+
+    def _graphed(self) -> bool:
+        """Whether the device-cached step runs as a CUDA graph: on the card, at
+        batch 1, with grid labels and no mesh."""
+        return (torch.device(self.device).type in reg_graph.DEVICE_TYPES
+                and self.batch_size == 1 and self.mesh is None and self.visibility != "exact")
+
+    def _graph_step(self, item: Dict) -> Dict:
+        """The device-cached step as a replay of its CUDA graph, captured anew
+        when its inputs' shapes, the jitter or the optimizer change."""
+        with profiling.annotate("regtr.inputs"):
+            sides, matrices = self._cached_sides(item), reg_graph.matrices(item)
+            jitter = self._jitter(item["aug"])
+            g = self._graph
+            if (g is None or g.optimizer is not self.optimizer
+                    or g.key != reg_graph.key(sides, matrices, jitter)):
+                self._graph = None  # the old graph's memory goes first
+                g = self._graph = reg_graph.StepGraph(self, sides, matrices, jitter)
+            g.fill(sides, matrices, self._aug_gen)
+        return g.step(self)
 
     def train_iteration_batch(self, items) -> Dict:
         """One step over several pairs (the gradient of their mean loss)."""

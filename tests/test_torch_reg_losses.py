@@ -164,6 +164,22 @@ def test_elementwise_losses_match_jax(case):
     close(p.grad.numpy(), want_g, what=case + " grad")
 
 
+def test_overlap_bce_of_a_saturated_bf16_prediction_is_finite():
+    """In bf16 the upper clip bound 1 - 1e-6 rounds to 1: the loss is taken
+    in f32, so a prediction of exactly 1 (or 0) reads the f32 bounds' loss
+    and no 0 * log(0), and its gradient is the f32 one."""
+    pred = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.25], dtype=torch.bfloat16, requires_grad=True)
+    gt = torch.tensor([1.0, 0.0, 0.0, 1.0, 1.0])
+    mask = torch.ones(5, dtype=torch.bool)
+    got = pL.overlap_bce(pred, gt, mask)
+    got.backward()
+    want_pred = pred.detach().float().requires_grad_(True)
+    want = pL.overlap_bce(want_pred, gt, mask)
+    want.backward()
+    assert got.dtype == torch.float32 and torch.isfinite(got) and torch.equal(got, want)
+    assert torch.equal(pred.grad, want_pred.grad.to(torch.bfloat16))
+
+
 def test_masked_mean_and_init_infonce_W():
     rng = np.random.default_rng(3)
     x = rng.normal(size=50).astype(np.float32)
