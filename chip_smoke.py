@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero:
      slot on random data, bit for bit on small integers; also its device
      time in the profiler and the wrapper's host time a call, and level 0's
      run-length call with its run count on the device) and
-     K2p (row gather, ops/gather_rows.py);
+     K2p (row gather, ops/gather_rows.py); and K6 (the xor-hash encoder's
+     forward and table-gradient backward, ops/hash_encoding.py) at
+     HashGridConfig() on 2^18 ray-coherent points: the forward within
+     K6_TOL["out"] of the plain version's max, the backward within
+     K6_TOL["grad"], its support (dL/denc = 1) equal to the corner rows of
+     hash_corners with a nonzero weight, and its launch counts;
   4. small-input references: one tiny training step on the card against
      the same step on the CPU, under grad_accum "pallas" in f32 and at the
      CLI defaults (bf16 MLPs, grad_accum "bf16", the run-length backward on
@@ -158,10 +163,11 @@ Phases, in order; any failure exits non-zero:
      times): finite losses, every parameter moved, ms a step, 8 profiled
      steps, peak memory, MLP FLOPs a step against the f32 peak, train and
      val PSNR, the checkpoint read back bit for bit; and the xor-hash NGP
-     at full width trained to HASH_STEPS, profiled, saved ("encoder":
-     "xor_hash"), evaluated and extracted through Evaluator, with its
-     surface rays/s; K1, K1p and K2p launch in none of it; a `fields`
-     JSON line;
+     at full width, built by the trainer from `--encoder xor_hash`,
+     trained to HASH_STEPS, profiled, saved ("encoder": "xor_hash"),
+     evaluated and extracted through Evaluator, with its surface rays/s;
+     K1, K1p and K2p launch in none of it, K6 forward and backward in all
+     of its training; a `fields` JSON line;
  15. a JSON line of every kernel with its launches on its path, time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
@@ -189,7 +195,13 @@ PROFILE_STEPS = 8  # after TRAIN_STEPS, before the next occupancy update
 PROFILE_TOP = 15
 PROFILE_PAD_S = 0.1  # host seconds around a profiled window's launches (device_ms)
 # the __global__ functions of dregnerf_tpu_torch/csrc
-PORT_KERNELS = ("scatter_add_rows_f32x4", "scatter_add_rows_bf16x8", "gather_rows_f32x4")
+PORT_KERNELS = ("scatter_add_rows_f32x4", "scatter_add_rows_bf16x8", "gather_rows_f32x4",
+                "hash_grid_fwd", "hash_grid_bwd")
+# K6 against its plain version, relative to the plain version's max |value|:
+# the forward's corner rows are equal (8-corner sums in another order), the
+# backward's atomics sum in a varying order
+K6_TOL = {"out": 1e-6, "grad": 1e-5}
+K6_RAYS, K6_RUN = 1 << 14, 16  # rays of K6's points, consecutive samples a ray
 PALLAS_STEPS = 64
 EXTRACT_STEPS = 1024  # the default-trained block is extracted at this step
 REG_WARMUP, REG_TIMED = 2, 10  # registration forwards before and under the clock
@@ -619,6 +631,92 @@ def k2p_phase(torch, dev) -> dict:
     print(f"K2p per step (4 levels): kernel {out['ms']:.4f} ms, index_select "
           f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms", flush=True)
     return dict(out, max_abs_err=0.0)
+
+
+def k6_points(torch, g) -> "torch.Tensor":
+    """K6_RAYS * K6_RUN = 2^18 points in [0, 1]^3, K6_RUN consecutive
+    samples a ray at the training march's step (sqrt(3) / 1024 in the unit
+    box), as the marcher hands them to the encoder."""
+    starts = torch.rand(K6_RAYS, 3, generator=g, device="cuda") * 0.8 + 0.1
+    dirs = torch.nn.functional.normalize(torch.randn(K6_RAYS, 3, generator=g, device="cuda"),
+                                         dim=-1)
+    steps = torch.arange(K6_RUN, device="cuda", dtype=torch.float32) * (math.sqrt(3) / 1024)
+    return (starts[:, None] + dirs[:, None] * steps[None, :, None]).reshape(-1, 3).contiguous()
+
+
+def k6_phase(torch, dev) -> dict:
+    """K6 forward and backward at HashGridConfig() on k6_points: against
+    the plain version (hash_encode_plain and its autograd backward), and
+    the library calls on the same rows and weights (index_select and the
+    8-corner sum; index_put_ with accumulate). The bound counts positions
+    read and the f32 encoding written (or its gradient read): each
+    distinct row read or added is unseen."""
+    from dregnerf_tpu_torch.ops import hash_encoding as H
+
+    cfg = H.HashGridConfig()
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = k6_points(torch, g)
+    n = x.shape[0]
+    table = (torch.rand(cfg.n_levels * cfg.table_size, cfg.n_features, generator=g,
+                        device=dev) * 2 - 1).requires_grad_(True)
+    dout = torch.randn(n, cfg.out_dim, generator=g, device=dev)
+    before = (H.hash_encode.launches, H.hash_encode.grad_launches)
+    got = H.hash_encode(table, x, cfg)
+    got.backward(dout)
+    got_grad, table.grad = table.grad, None
+    check((H.hash_encode.launches, H.hash_encode.grad_launches) == (before[0] + 1, before[1] + 1),
+          f"K6 launches {H.hash_encode.launches, H.hash_encode.grad_launches} after {before}")
+    want = H.hash_encode_plain(table, x, cfg)
+    want.backward(dout)
+    want_grad, table.grad = table.grad, None
+    out_err = ((got - want).abs().max() / want.abs().max()).item()
+    grad_err = ((got_grad - want_grad).abs().max() / want_grad.abs().max()).item()
+    check(out_err <= K6_TOL["out"], f"K6 forward err {out_err} of max")
+    check(grad_err <= K6_TOL["grad"], f"K6 backward err {grad_err} of max")
+    # the rows: with dL/denc = 1 and weights >= 0, the gradient is nonzero
+    # exactly at the rows of the corners with a nonzero weight
+    rows, w = H.hash_corners(x, cfg)
+    support = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    support[rows[w > 0]] = True
+    ones = H.hash_encode(table, x, cfg)
+    ones.backward(torch.ones_like(ones))
+    rows_equal = bool(torch.equal(table.grad.abs().sum(-1) > 0, support))
+    table.grad = None
+    check(rows_equal, "K6's corner rows differ from hash_corners'")
+
+    t = table.detach()
+    flat, wf = rows.reshape(-1), w.reshape(n, cfg.n_levels, 8, 1)
+    src = (wf * dout.reshape(n, cfg.n_levels, 1, cfg.n_features)).reshape(-1, cfg.n_features)
+
+    tt = t.clone().requires_grad_(True)
+    y = H.hash_encode_plain(tt, x, cfg)
+
+    def plain_bwd():  # autograd's backward of the plain forward, kept
+        tt.grad = None
+        y.backward(dout, retain_graph=True)
+
+    def k6_bwd():
+        H._launch("hash_grid_bwd_f32", x, dout, torch.zeros_like(t), cfg)
+
+    fwd = {"ms": cuda_ms(lambda: H.hash_encode(t, x, cfg)),
+           "plain_ms": cuda_ms(lambda: H.hash_encode_plain(t, x, cfg)),
+           "library_ms": cuda_ms(lambda: (t.index_select(0, flat).reshape(
+               n, cfg.n_levels, 8, cfg.n_features) * wf).sum(2)),
+           "bound_ms": bound_ms(n * (12 + 4 * cfg.out_dim)),
+           "device_ms": device_ms(torch, lambda: H.hash_encode(t, x, cfg), "hash_grid_fwd"),
+           "max_abs_err": out_err}
+    bwd = {"ms": cuda_ms(k6_bwd), "plain_ms": cuda_ms(plain_bwd),
+           "library_ms": cuda_ms(lambda: torch.zeros_like(t).index_put_((flat,), src,
+                                                                         accumulate=True)),
+           "bound_ms": bound_ms(n * (12 + 4 * cfg.out_dim)),
+           "device_ms": device_ms(torch, k6_bwd, "hash_grid_bwd"), "max_abs_err": grad_err}
+    for name, r in (("forward", fwd), ("backward", bwd)):
+        print(f"K6 {name} at {n} points x {cfg.n_levels} levels: kernel {r['ms']:.4f} ms "
+              f"(alone {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), err "
+              f"{r['max_abs_err']:.3e} of max", flush=True)
+    print("K6 corner rows equal to hash_corners' (the backward's support)", flush=True)
+    return {"forward": fwd, "backward": bwd, "rows_equal": rows_equal}
 
 
 def _record_scatters(packed_grid, seen: dict):
@@ -3460,29 +3558,31 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
 
 def hash_ngp_phase(torch, out_dir: str) -> dict:
     """Phase 14d: the xor-hash NGP at full width (HashGridConfig(): 16
-    levels x 2^19 rows x 2 features, bf16 MLPs) swapped into the trainer at
-    SHAPE_FLAGS, trained to HASH_STEPS, profiled, saved, and evaluated and
-    extracted through Evaluator; K1, K1p and K2p must never launch."""
+    levels x 2^19 rows x 2 features, bf16 MLPs), built by the trainer from
+    `--encoder xor_hash` at SHAPE_FLAGS, trained to HASH_STEPS, profiled,
+    saved, and evaluated and extracted through Evaluator; K1, K1p and K2p
+    must never launch, K6 forward and backward must."""
     import numpy as np
 
     from dregnerf_tpu_torch.eval_ngp_nerf import Evaluator
     from dregnerf_tpu_torch.extract import sample_grid as sg
-    from dregnerf_tpu_torch.models import ngp
-    from dregnerf_tpu_torch.ops.hash_encoding import HashGridConfig
+    from dregnerf_tpu_torch.ops.hash_encoding import HashGridConfig, hash_encode
     from dregnerf_tpu_torch.runtime.checkpoint import load_checkpoint
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
     scene, val_scene = _scenes()
-    cfg = config_parser(SHAPE_FLAGS + ["--expname", "chip_smoke_hash", "--out_dir", out_dir])
+    cfg = config_parser(SHAPE_FLAGS + ["--expname", "chip_smoke_hash", "--out_dir", out_dir,
+                                       "--encoder", "xor_hash"])
     trainer = NGPTrainer(cfg, scene, val_scene)
     grid = HashGridConfig()
-    trainer.model_config = ngp.NGPConfig(grid=grid, compute_dtype=torch.bfloat16)
-    trainer.init_params(torch.Generator(device=trainer.device).manual_seed(cfg.seed))
-    trainer.setup_optimizer()
+    check(trainer.model_config.grid == grid
+          and trainer.model_config.compute_dtype == torch.bfloat16,
+          f"--encoder xor_hash built {trainer.model_config}")
     rows = tuple(trainer.params["table"].shape)
     check(rows == (grid.n_levels * grid.table_size, grid.n_features), f"hash table {rows}")
     _reset_kernel_launches()
+    hash_encode.launches = hash_encode.grad_launches = 0
     run = train_timed(torch, trainer, range(HASH_STEPS))
     first, last = sum(run["losses"][:8]) / 8, sum(run["losses"][-8:]) / 8
     check(last < first, f"hash NGP loss did not fall: first 8 {first}, last 8 {last}")
@@ -3512,7 +3612,10 @@ def hash_ngp_phase(torch, out_dir: str) -> dict:
     n_surface = int((extracted["surface_mask"] & extracted["density_mask"]).sum())
     check(n_surface > 0, "the hash block has no surface voxel")
     launches = _kernel_launches()
-    check(not any(launches.values()), f"the hash NGP launched port kernels: {launches}")
+    check(not any(launches.values()), f"the hash NGP launched K1, K1p or K2p: {launches}")
+    launches.update(hash_grid_fwd=hash_encode.launches, hash_grid_bwd=hash_encode.grad_launches)
+    check(hash_encode.grad_launches >= HASH_STEPS and hash_encode.launches > HASH_STEPS,
+          f"K6 launches {launches}")
     rays = len(points) * len(cams)
     out = {"steps": HASH_STEPS, "wall_s": run["wall_s"], "steady_ms": run["steady_ms"],
            "busy_ms": busy_ms, "profiled_wall_ms": profiled_ms,
@@ -3578,6 +3681,7 @@ def main() -> int:
     k1 = timed("K1", k1_phase, torch, dev)
     k1p = timed("K1p", k1p_phase, torch, dev)
     k2p = timed("K2p", k2p_phase, torch, dev)
+    k6 = timed("K6", k6_phase, torch, dev)
     timed("reference pallas", reference_phase, torch, dev, False)
     timed("reference defaults", reference_phase, torch, dev, True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
@@ -3646,6 +3750,11 @@ def main() -> int:
              exact_path={k: exact["k2p_exact"][k] for k in ("ms", "bound_ms",
                                                             "profiled_us_a_launch")}),
     ]
+    hash_launches = fields["hash_ngp"]["launches"]
+    for part, kernel in (("forward", "hash_grid_fwd"), ("backward", "hash_grid_bwd")):
+        kernels.append(dict(entry(f"{kernel}_f32", "hash_grid.cu", "none (XLA in the JAX "
+                                  "package)", hash_launches[kernel], k6[part]),
+                            device_ms=k6[part]["device_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

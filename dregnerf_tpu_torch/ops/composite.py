@@ -72,7 +72,11 @@ def packed_transmittance(packed: PackedSamples, alphas: torch.Tensor) -> torch.T
     base_per_ray = base_per_ray.scatter_reduce(
         0, packed.ray_id, torch.where(packed.valid, excl, -torch.inf),
         reduce="amax", include_self=True)
-    base = base_per_ray[packed.ray_id.clamp(max=packed.num_rays - 1)]
+    # padding gathers a slot spread over the rays by its row: were every pad to
+    # gather one slot, autograd's index backward would add all the pads' zero
+    # gradients into that slot one after another
+    pad_slot = torch.arange(excl.shape[0], device=excl.device) % (packed.num_rays + 1)
+    base = base_per_ray[torch.where(packed.valid, packed.ray_id, pad_slot)]
     # padding is based at itself (exp(0)): a pad slot between two rays, as
     # the quota layout leaves them, would otherwise take the last ray's
     # base, overflow exp and turn the gradient through the where into NaN

@@ -36,11 +36,16 @@ _SCATTER = ([_PTR, _PTR, _ROWS, _PTR, _PTR, _PTR, _ROWS, _PTR, _PTR, ctypes.c_in
             ctypes.c_int)
 # (table, idx, out, n_rows, width, table_rows)
 _GATHER = ([_PTR, _PTR, _PTR, _ROWS, ctypes.c_int, _ROWS, _PTR], ctypes.c_int)
+# (x, table or dout, out or grad, n, n_levels, log2_table_size, host scales,
+# host resolutions, host dense flags)
+_HASH = ([_PTR, _PTR, _PTR, _ROWS, ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR, _PTR],
+         ctypes.c_int)
 _DOUBLES, _INT, _DOUBLE = ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "scatter_add": {"scatter_add_f32": _SCATTER},
     "scatter_add_bf16": {"scatter_add_bf16": _SCATTER},
     "gather_rows": {"gather_rows_f32": _GATHER},
+    "hash_grid": {"hash_grid_fwd_f32": _HASH, "hash_grid_bwd_f32": _HASH},
     # host C++ (fgr.cpp); each returns 0 or a negative failure code
     "fgr": {
         # (src, n_src, tgt, n_tgt, voxel, out 4x4)

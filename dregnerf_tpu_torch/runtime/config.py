@@ -1,10 +1,11 @@
 """Argparse flags of the port's entry points (copy of the flags of
 dregnerf_tpu/runtime/config.py that the NGP trainer, its evaluator and the
 registration trainer and evaluator read: same names and defaults), plus
-`--device` and `--profile_steps`.
+`--device`, `--profile_steps` and `--encoder`.
 
-Every `--grad_accum` value trains, with or without `--rle_backward`, and
-every `--march_compaction`, `--field` and `--dataset`; `--fleet` trains
+Every `--encoder` trains, every `--grad_accum` value with or without
+`--rle_backward` (the packed encoder's), and every `--march_compaction`,
+`--field` and `--dataset`; `--fleet` trains
 the blocks of `--multi_blocks` together, and `--mesh_shape` runs the
 trainers and the extraction over the ranks of a torchrun job (parallel/).
 """
@@ -85,15 +86,20 @@ def config_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--max_num_rays", type=int, default=1 << 16)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no_bf16", dest="bf16", action="store_false")
+    p.add_argument("--encoder", type=str, default="packed", choices=["packed", "xor_hash"],
+                   help="NGP grid encoder: the packed 4 x 8 layout (ops/packed_grid.py) or "
+                   "Instant-NGP's xor-hash grid, 16 levels x 2 features of 2^19 rows "
+                   "(ops/hash_encoding.py, kernel K6, csrc/hash_grid.cu)")
     p.add_argument("--grad_accum", type=str, default="bf16",
                    choices=["f32", "bf16", "sorted", "sorted_bf16", "pallas"],
-                   help="table-gradient accumulator: f32, sorted and pallas sum "
-                   "in f32 (kernel K1, csrc/scatter_add.cu), bf16 and sorted_bf16 "
-                   "in bf16 (kernel K1p, csrc/scatter_add_bf16.cu)")
+                   help="table-gradient accumulator of the packed encoder: f32, sorted and "
+                   "pallas sum in f32 (kernel K1, csrc/scatter_add.cu), bf16 and sorted_bf16 "
+                   "in bf16 (kernel K1p, csrc/scatter_add_bf16.cu); does not apply to "
+                   "--encoder xor_hash (K6 sums in f32)")
     p.add_argument("--rle_backward", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="run-length-compressed table gradient at coarse "
-                   "encoder levels (ops/rle.py)")
+                   help="run-length-compressed table gradient at coarse levels of the "
+                   "packed encoder (ops/rle.py); does not apply to --encoder xor_hash")
     p.add_argument("--march_compaction", type=str, default="capped",
                    choices=["compact", "capped", "quota", "rows"])
 

@@ -2,15 +2,18 @@
 dregnerf_tpu/runtime/ngp_trainer.py).
 
 The field is `--field`'s family (models/fields.py): Instant-NGP (the
-default; `NGPConfig` with the packed grid), or the 8x256 vanilla MLP, with
+default; `NGPConfig` with the packed grid, or with Instant-NGP's published
+xor-hash grid, `HashGridConfig()`, under `--encoder xor_hash`), or the
+8x256 vanilla MLP, with
 the D-NeRF warp under "dnerf" (bf16 operands unless --no_bf16). A scene
 with `timestamps` (the dnerf loader) gives each ray its image's time.
 
 One step: sample pixels, blend synthetic RGBA over a random background,
 generate rays, march + render with stratified jitter, Huber loss over the
-alive rays, backward (the table gradient goes through kernel K1 or K1p
-and, at coarse levels, the run-length backward, as `grad_accum` and
-`rle_backward` say; ops/packed_grid.py), Adam (lr 1e-2, eps 1e-15) under the x0.33
+alive rays, backward (the packed table's gradient goes through kernel K1
+or K1p and, at coarse levels, the run-length backward, as `grad_accum` and
+`rle_backward` say, ops/packed_grid.py; the hash table's through K6,
+ops/hash_encoding.py), Adam (lr 1e-2, eps 1e-15) under the x0.33
 multistep schedule at {1/2, 3/4, 9/10} of training. Every 16 steps the
 occupancy grid gets an EMA update (all cells below step 256). The ray
 bucket follows the sample budget in powers of two, from a count read back
@@ -52,6 +55,7 @@ from dregnerf_tpu_torch.models.fields import get_field
 from dregnerf_tpu_torch.models.mlp_nerf import VanillaNeRFConfig
 from dregnerf_tpu_torch.ops import occupancy
 from dregnerf_tpu_torch.ops.contraction import contract_inv
+from dregnerf_tpu_torch.ops.hash_encoding import HashGridConfig
 from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig
 from dregnerf_tpu_torch.parallel.mesh import barrier, is_main, mesh_and_device
 from dregnerf_tpu_torch.render.renderer import (
@@ -226,7 +230,10 @@ class NGPTrainer:
         cfg = self.config
         self.field = get_field(cfg.field)
         dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-        if cfg.field == "ngp":
+        if cfg.field == "ngp" and cfg.encoder == "xor_hash":
+            self.model_config = ngp.NGPConfig(grid=HashGridConfig(), unbounded=cfg.unbounded,
+                                              compute_dtype=dtype)
+        elif cfg.field == "ngp":
             rle_step_u = 0.0
             if cfg.rle_backward and not cfg.unbounded:
                 extent = float(np.min(np.asarray(cfg.aabb, np.float32)[3:]

@@ -278,3 +278,77 @@ def test_scatter_add_bf16_count_leaves_the_rows_past_it_unread(cuda_device):
     want = scatter_add_bf16_plain(idx[:count], src[:count], table_rows).float()
     err = (got - want).abs()
     assert bool((err <= _bf16_slot_bound(idx[:count], src[:count], table_rows)).all())
+
+
+def _hash_points(n, coherent, generator, device):
+    """n points: in runs of 16 samples a ray at the training march's step
+    (sqrt(3) / 1024 in the unit box), as the marcher hands them over, or
+    uniform in [-0.05, 1.05]^3 (corners clamped at the faces)."""
+    if not coherent:
+        return torch.rand(n, 3, generator=generator, device=device) * 1.1 - 0.05
+    starts = torch.rand(n // 16, 3, generator=generator, device=device) * 0.8 + 0.1
+    dirs = torch.nn.functional.normalize(
+        torch.randn(n // 16, 3, generator=generator, device=device), dim=-1)
+    steps = torch.arange(16, device=device, dtype=torch.float32) * (math.sqrt(3) / 1024)
+    return (starts[:, None] + dirs[:, None] * steps[None, :, None]).reshape(-1, 3).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coherent", [False, True])
+def test_hash_grid_kernel_matches_plain(cuda_device, coherent):
+    """K6 at full width (2^18 points, HashGridConfig()) against the plain
+    path on the card: the forward within 1e-6 of its max (equal corner
+    rows, the 8-corner sums in another order), the table gradient within
+    1e-5 of its max (atomics sum in a varying order), the gradient's support
+    under dL/denc = 1 (weights >= 0) exactly the rows of hash_corners with a
+    nonzero weight, and one launch each way."""
+    from dregnerf_tpu_torch.ops import hash_encoding as H
+
+    cfg = H.HashGridConfig()
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = _hash_points(1 << 18, coherent, g, cuda_device)
+    table = (torch.rand(cfg.n_levels * cfg.table_size, 2, generator=g, device=cuda_device)
+             * 2 - 1).requires_grad_(True)
+    dout = torch.randn(x.shape[0], cfg.out_dim, generator=g, device=cuda_device)
+    before = (H.hash_encode.launches, H.hash_encode.grad_launches)
+    got = H.hash_encode(table, x, cfg)
+    got.backward(dout)
+    torch.cuda.synchronize()
+    assert (H.hash_encode.launches, H.hash_encode.grad_launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    got_grad, table.grad = table.grad, None
+    want = H.hash_encode_plain(table, x, cfg)
+    want.backward(dout)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    assert (got_grad - table.grad).abs().max() <= 1e-5 * table.grad.abs().max()
+    table.grad = None
+    rows, w = H.hash_corners(x, cfg)
+    support = torch.zeros(table.shape[0], dtype=torch.bool, device=cuda_device)
+    support[rows[w > 0]] = True
+    ones = H.hash_encode(table, x, cfg)
+    ones.backward(torch.ones_like(ones))
+    assert torch.equal(table.grad.abs().sum(-1) > 0, support)
+
+
+@pytest.mark.cuda
+def test_hash_grid_spans_and_counters_on_the_card(cuda_device):
+    """Under a profiler the store times `hash.encode` around K6's forward
+    and `hash.encode_grad` around its backward, which autograd runs on its
+    device thread, and counts the calls, the launches and the rows."""
+    from dregnerf_tpu_torch.ops import hash_encoding as H
+    from dregnerf_tpu_torch.runtime import profiling
+
+    cfg = H.HashGridConfig(n_levels=4, log2_table_size=13)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = _hash_points(4096, True, g, cuda_device)
+    table = torch.zeros(4 << 13, 2, device=cuda_device, requires_grad=True)
+    profiling.reset()
+    with torch.profiler.profile():
+        H.hash_encode(table, x, cfg).sum().backward()
+    snap = profiling.snapshot()
+    profiling.reset()
+    for name in ("hash.encode", "hash.encode_grad"):
+        assert snap["spans"][name]["calls"] == 1
+        assert snap["spans"][name]["device_ms"] is not None
+    assert snap["counters"] == {"hash.encode_calls": 1, "hash.kernel_calls": 1,
+                                "hash.rows": 4096}
