@@ -30,10 +30,18 @@ Phases, in order; any failure exits non-zero:
   5. training at the CLI defaults at full width (L4F8, 2^19 tables,
      2^18-sample budget, 1024 march steps, 128^3 grid, bf16 MLPs,
      grad_accum "bf16" with the run-length backward at level 0) on the
-     36-view 128 px fixture scene: 64 steps, 8 more under torch.profiler
-     (the device's busy share and the kernels that take most of a step),
-     one validate() render; K1p and K2p must launch 4 times in each
-     steady step (49-63, no occupancy update);
+     36-view 128 px fixture scene: 64 steps, 2 more (an occupancy update,
+     and a step that may capture a new bucket's graph), 7 more under
+     torch.profiler (the device's busy share and the kernels that take
+     most of a step),
+     one validate() render; every step a replay of the trainer's CUDA
+     graph (runtime/ngp_graph.py, one capture a ray bucket), each steady
+     step's (49-63, no occupancy update) graph recorded with 4 K1p and 4
+     K2p launches and the host launching neither outside a capture, the
+     run-length backward counted once a steady step, its overflow
+     fallback counted; in the profiled steps the profiler counts on the
+     device each port kernel as often as the replayed graphs' recordings
+     launched it (this holds in every profiled phase);
   6. stage 2 on that block, trained on to step 1024: its checkpoint saved
      and loaded back through load_field_from_checkpoint,
      Evaluator.evaluate() on the test views, then Evaluator.sample_points()
@@ -47,7 +55,8 @@ Phases, in order; any failure exits non-zero:
      both blocks trained to MB_STEPS through train_ngp_nerf.train_blocks
      at SHAPE_FLAGS (K1p and K2p 4 launches in every step without an
      occupancy update, K2p held bit for bit against index_select on each
-     level's call of one step of each block), evaluated and extracted
+     level's call of one step of each block, that step run eagerly),
+     evaluated and extracted
      through eval_ngp_nerf.eval_blocks; the frame check (at least
      MB_FRAME_SHARE of block 0's surface voxels near block 1's under
      T1 T0^-1, at most MB_SWAPPED_SHARE under T0 T1^-1); the pair read
@@ -86,8 +95,8 @@ Phases, in order; any failure exits non-zero:
      scene's RGBA byte for byte _trace's; its stage1_and_2 (each block to
      S3_NGP_STEPS, every block with surface voxels; K1p and K2p 8 launches
      in every step without an occupancy update, each level's call of
-     S3_CHECK_STEP held against its plain version: K2p bit for bit, K1p
-     within its slot bound), the regdata tree, its stage3 (S3_REG_STEPS
+     S3_CHECK_STEP, run eagerly, held against its plain version: K2p bit
+     for bit, K1p within its slot bound), the regdata tree, its stage3 (S3_REG_STEPS
      steps, finite losses) and evaluate (scene_01 in both block orders,
      RegTr with and without the ICP polish; the FGR/RANSAC baseline on the
      first order only, S3_BASELINE_DRAWS), the metrics files written; the
@@ -168,7 +177,10 @@ Phases, in order; any failure exits non-zero:
      evaluated and extracted through Evaluator, with its surface rays/s;
      K1, K1p and K2p launch in none of it, K6 forward and backward in all
      of its training; a `fields` JSON line;
- 15. a JSON line of every kernel with its launches on its path, time, plain
+ 15. a JSON line of every kernel with its host launches on its path (the
+     wrappers' counters: a CUDA graph's replay runs none), apart from them
+     the launches that the training steps' replays ran (`replayed`,
+     derived from what each graph's recording launched), time, plain
      time, bound and library time; the card's line; and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -862,12 +874,17 @@ def profiled(torch, fn, calls: int, label: str, unit: str):
 
 
 def profile_phase(torch, trainer, first_step: int) -> tuple[float, float]:
-    """Where a training step's device time goes: PROFILE_STEPS steps after
-    the occupancy update of step `first_step`, under torch.profiler; prints
-    the device's busy share of the window and the kernels that take most
-    of it, and returns the device's busy ms and the wall ms a profiled step."""
+    """Where a training step's device time goes: the steps up to
+    `first_step` + PROFILE_STEPS after the occupancy update of step
+    `first_step` and the step after it, under torch.profiler; prints the
+    device's busy share of the window and the kernels that take most of it,
+    and returns the device's busy ms and the wall ms a profiled step. (The
+    feedback of step `first_step` may move the ray bucket; the step after
+    it then captures that bucket's CUDA graph, outside the window.)"""
     trainer.train_iteration(first_step)
-    steps = range(first_step + 1, first_step + 1 + PROFILE_STEPS)
+    trainer.train_iteration(first_step + 1)
+    steps = range(first_step + 2, first_step + 1 + PROFILE_STEPS)
+    before = _ngp_marks(trainer)
     busy_ms, kernels, _, wall_ms = profiled(
         torch, lambda: [trainer.train_iteration(step) for step in steps], len(steps),
         f"profile: steps {steps.start}-{steps.stop - 1}", "step")
@@ -875,7 +892,59 @@ def profile_phase(torch, trainer, first_step: int) -> tuple[float, float]:
         if any(name in e.key for name in PORT_KERNELS):
             print(f"  port kernel {e.key[:40]}: {e.self_device_time_total / len(steps) / 1e3:.4f} "
                   f"ms/step device, x{e.count // len(steps)} a step", flush=True)
+    # the replays' launches, counted on the device, against what the
+    # replayed graphs' recordings launched; the host launches none
+    host, replayed, captures, replays = _ngp_launches(trainer, before, tuple(PORT_KERNEL_OF))
+    on_device = tuple(sum(e.count for e in kernels if kernel in e.key)
+                      for kernel in PORT_KERNEL_OF.values())
+    print(f"  port kernels on the device in the profiled steps {on_device}, replayed "
+          f"(derived) {replayed}, host launches {host} of {tuple(PORT_KERNEL_OF)}; "
+          f"{replays} replays", flush=True)
+    check(replays == len(steps) and captures == 0 and not any(host) and on_device == replayed,
+          f"profiled steps: {replays} replays, {captures} captures, port kernels on the device "
+          f"{on_device}, replayed {replayed}, host {host}")
     return busy_ms, wall_ms
+
+
+# K1p and K2p's launch counters (runtime/ngp_graph.py::launch_counters)
+K1P_K2P = ("scatter_add_bf16", "gather_rows")
+# each launch counter's kernel, as the profiler names it
+PORT_KERNEL_OF = {"scatter_add": "scatter_add_rows_f32x4",
+                  "scatter_add_bf16": "scatter_add_rows_bf16x8",
+                  "gather_rows": "gather_rows_f32x4", "hash_grid_fwd": "hash_grid_fwd",
+                  "hash_grid_bwd": "hash_grid_bwd"}
+
+
+def _ngp_marks(trainer) -> tuple:
+    """What `_ngp_launches` counts from: the kernels' host launches, the
+    launches the trainer's replays ran, its captures and its replays."""
+    from dregnerf_tpu_torch.runtime import ngp_graph
+
+    return (ngp_graph.launches(), dict(trainer.replayed_launches), trainer.graph_captures,
+            trainer.graph_replays)
+
+
+def _ngp_launches(trainer, before: tuple, kernels=K1P_K2P) -> tuple:
+    """(host, replayed, captures, replays) since the marks `before`: `host`
+    the launches of each of `kernels` that its wrapper counted where it
+    launched (a capture's warm-up and its recording launch one step's each,
+    a replay none); `replayed` those the replays ran, a derived number:
+    each replay counted with what its graph's recording launched
+    (NGPTrainer.replayed_launches)."""
+    host, replayed, captures, replays = _ngp_marks(trainer)
+    return (tuple(host[k] - before[0][k] for k in kernels),
+            tuple(replayed.get(k, 0) - before[1].get(k, 0) for k in kernels),
+            captures - before[2], replays - before[3])
+
+
+def _ngp_step_ok(counts: tuple, n: int) -> bool:
+    """Whether a step without an occupancy update (its `_ngp_launches`)
+    launched each kernel `n` times: as a replay of a graph whose recording
+    held n, the host launching none but at a capture (n for its warm-up, n
+    for its recording), or eagerly, the host launching n."""
+    host, replayed, captures, replays = counts
+    return (replays in (0, 1) and all(r == n * replays for r in replayed)
+            and all(h == n * (2 * captures + 1 - replays) for h in host))
 
 
 def _scenes():
@@ -886,11 +955,13 @@ def _scenes():
 
 
 def train_default_phase(torch, out_dir: str):
-    """The CLI defaults at full width; returns (trainer, config, launches
-    of K1p and K2p over the TRAIN_STEPS steps)."""
+    """The CLI defaults at full width; returns (trainer, config, the host
+    launches of K1, K1p and K2p over the TRAIN_STEPS steps, and those of K1p
+    and K2p that the replays ran, derived)."""
     from dregnerf_tpu_torch.ops import packed_grid
     from dregnerf_tpu_torch.ops.gather_rows import gather_rows
     from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+    from dregnerf_tpu_torch.runtime import profiling
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
@@ -909,71 +980,73 @@ def train_default_phase(torch, out_dir: str):
           f"RLE at levels {rle_levels}", flush=True)
     check(rle_levels == [0], f"RLE at levels {rle_levels}, expected [0]")
 
-    # keep level 0's slots and max_runs of the steady steps (a reference,
-    # no copy) to say afterwards whether the overflow fallback ran
-    real_rle = packed_grid._rle_backward
-    rle_calls = []
-
-    def rle_recorded(idx, g, table_rows, max_runs, accum):
-        rle_calls.append((idx, max_runs))
-        return real_rle(idx, g, table_rows, max_runs, accum)
-
-    packed_grid._rle_backward = rle_recorded
+    # the steady steps' run-length counters (`rle.calls`, and `rle.direct`,
+    # the calls whose overflow flag sent K1p to the direct rows), read after
+    # the loop: the step is a CUDA graph's replay, which runs no Python, and
+    # counts them after each replay
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scatter_add.launches = scatter_add_bf16.launches = gather_rows.launches = 0
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
-    metrics, per_step_launches, steady_rle = [], [], []
-    try:
-        t0 = time.perf_counter()
-        marks[0].record()
-        for step in range(TRAIN_STEPS):
-            before = (scatter_add_bf16.launches, gather_rows.launches, len(rle_calls))
+    metrics, per_step_launches, steady_rle = [], [], {}
+    start = _ngp_marks(trainer)
+    t0 = time.perf_counter()
+    marks[0].record()
+    for step in range(TRAIN_STEPS):
+        before = _ngp_marks(trainer)
+        with profiling.collect({}) as counts:
             metrics.append(trainer.train_iteration(step))
-            marks[step + 1].record()
-            per_step_launches.append((scatter_add_bf16.launches - before[0],
-                                      gather_rows.launches - before[1]))
-            if step in STEADY:
-                steady_rle += rle_calls[before[2]:]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        packed_grid._rle_backward = real_rle
+        marks[step + 1].record()
+        per_step_launches.append(_ngp_launches(trainer, before))
+        if step in STEADY:
+            for name in ("rle.calls", "rle.direct"):
+                steady_rle.setdefault(name, []).extend(counts.get(name, []))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = {"scatter_add": scatter_add.launches, "scatter_add_bf16": scatter_add_bf16.launches,
                 "gather_rows": gather_rows.launches}
+    replayed = dict(zip(K1P_K2P, _ngp_launches(trainer, start)[1]))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     losses = [float(m["loss"]) for m in metrics]
     psnrs = [float(m["psnr"]) for m in metrics]
     n_samples = [int(m["n_samples"]) for m in metrics]
     step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(TRAIN_STEPS)]
-    bad = [(s, per_step_launches[s]) for s in STEADY if per_step_launches[s] != (4, 4)]
-    check(not bad, f"steady steps with K1p/K2p launches other than (4, 4): {bad}")
+    bad = [(s, per_step_launches[s]) for s in STEADY if not _ngp_step_ok(per_step_launches[s], 4)]
+    check(not bad, f"steady steps (step, (host, replayed, captures, replays)) whose K1p/K2p "
+          f"launches are not 4/4: {bad}")
     check(launches["scatter_add"] == 0, "K1 ran on the default path")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
     check(last < first, f"loss did not fall: first 8 {first}, last 8 {last}")
-    n_runs = [1 + int((idx[1:] != idx[:-1]).sum()) for idx, _ in steady_rle]
-    overflow = sum(n > max_runs for n, (_, max_runs) in zip(n_runs, steady_rle))
+    rle_calls, overflow = (sum(int(v) for v in steady_rle.get(name, []))
+                           for name in ("rle.calls", "rle.direct"))
+    check(rle_calls == len(STEADY), f"{rle_calls} run-length calls in {len(STEADY)} steady steps")
+    check(trainer.graph_replays == TRAIN_STEPS, f"{trainer.graph_replays} graph replays in "
+          f"{TRAIN_STEPS} steps")
     steady_ms = sum(step_ms[i] for i in STEADY) / len(STEADY)
     sps = sum(n_samples[i] for i in STEADY) / (sum(step_ms[i] for i in STEADY) / 1e3)
     print(f"train [CLI defaults]: {TRAIN_STEPS} steps in {wall:.3f} s wall, "
           f"{wall / TRAIN_STEPS * 1e3:.2f} ms/step overall; steps 49-63 (no occupancy update) "
           f"{steady_ms:.2f} ms/step device, {sps:.1f} samples/s; ray bucket "
           f"{trainer.num_rays} (ran {metrics[-1]['num_rays']}); loss first 8 {first:.5f} last "
-          f"8 {last:.5f}; train psnr {psnrs[0]:.3f} -> {psnrs[-1]:.3f}; launches {launches}, "
-          f"K1p/K2p 4/4 in every steady step; level-0 runs in steady steps {min(n_runs)}-"
-          f"{max(n_runs)} of max_runs {steady_rle[0][1]}, overflow fallback in {overflow} of "
-          f"{len(n_runs)}; peak device memory {peak_gib:.2f} GiB", flush=True)
+          f"8 {last:.5f}; train psnr {psnrs[0]:.3f} -> {psnrs[-1]:.3f}; host launches {launches}, "
+          f"replayed (derived) {replayed}, K1p/K2p 4/4 in every steady step (its graph's "
+          f"recording); level-0 overflow fallback in {overflow} of "
+          f"{rle_calls} steady steps; {trainer.graph_captures} CUDA graph captures, "
+          f"{trainer.graph_replays} replays; peak device memory {peak_gib:.2f} GiB", flush=True)
 
-    busy_ms, _ = profile_phase(torch, trainer, TRAIN_STEPS)
-    print(f"idle share of the unprofiled steady steps: 1 - {busy_ms:.3f} (busy, profiled) / "
-          f"{steady_ms:.3f} (ms/step, steps 49-63) = {1 - busy_ms / steady_ms:.4f}", flush=True)
+    # the profiled steps' own wall: their bucket may be the next one up
+    # from the steady steps', where a step has more device work
+    busy_ms, profiled_ms = profile_phase(torch, trainer, TRAIN_STEPS)
+    print(f"idle share of the profiled steps at bucket {trainer.num_rays}: 1 - {busy_ms:.3f} "
+          f"(busy) / {profiled_ms:.3f} (wall, ms/step) = {1 - busy_ms / profiled_ms:.4f}",
+          flush=True)
     t2 = time.perf_counter()
     val_psnr = trainer.validate(TRAIN_STEPS)
     check(math.isfinite(val_psnr), f"val psnr {val_psnr}")
     print(f"validate: val psnr {val_psnr:.3f}, {time.perf_counter() - t2:.3f} s", flush=True)
-    return trainer, cfg, launches
+    return trainer, cfg, launches, replayed
 
 
 def extract_phase(torch, trainer, cfg) -> None:
@@ -1044,18 +1117,21 @@ def extract_phase(torch, trainer, cfg) -> None:
 
 def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks=None):
     """Wrap NGPTrainer.train_iteration for the multi-block and stage-3
-    fleet phases: each step's (step, K1p launches, K2p launches, CUDA
+    fleet phases: each step's (step, its K1p and K2p `_ngp_launches`, CUDA
     events, loss) per trainer, and, in step `record_step` of each trainer,
     each level's K2p call (its first `levels` gathers) held bit for bit
     against index_select on the call's own inputs. With a dict
     `k1p_checks`, each level's K1p call of that step (its first `levels`)
     is held against the plain serial bf16 scatter on its own inputs
     (k1p_slot_error) and recorded there by trainer as (table shape, rows,
-    worst ratio to the slot bound). Returns (steps by trainer, checks by
-    trainer, restore)."""
+    worst ratio to the slot bound). Step `record_step` runs eagerly: the
+    other steps are replays of the trainer's CUDA graph, which run no
+    Python, so no wrapper would see their calls. Returns (steps by
+    trainer, checks by trainer, restore)."""
     from dregnerf_tpu_torch.ops import packed_grid, rle
     from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
     from dregnerf_tpu_torch.ops.scatter_add import _chosen, scatter_add_bf16, scatter_add_bf16_plain
+    from dregnerf_tpu_torch.runtime import ngp_graph
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
     real_step, real_gather = NGPTrainer.train_iteration, packed_grid.gather_rows
@@ -1087,16 +1163,19 @@ def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks
             if k1p_checks is not None:
                 k1p_checks.setdefault(key, [])
             current[0] = key
-        before = (scatter_add_bf16.launches, gather_rows.launches)
+        before = _ngp_marks(self)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
+        graphed = ngp_graph.DEVICE_TYPES
+        if i == record_step:
+            ngp_graph.DEVICE_TYPES = ()
         try:
             out = real_step(self, i)
         finally:
             current[0] = None
+            ngp_graph.DEVICE_TYPES = graphed
         end.record()
-        steps.setdefault(key, []).append((i, scatter_add_bf16.launches - before[0],
-                                          gather_rows.launches - before[1], start, end,
+        steps.setdefault(key, []).append((i, _ngp_launches(self, before), start, end,
                                           out["loss"]))
         return out
 
@@ -1110,6 +1189,14 @@ def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks
     if k1p_checks is not None:
         packed_grid.scatter_add_bf16 = rle.scatter_add_bf16 = scatter
     return steps, checks, restore
+
+
+def _replayed_total(steps: dict) -> dict:
+    """The K1p and K2p launches that the replays of `_block_recorder`'s
+    steps ran, derived (each replay counted with what its graph's
+    recording launched)."""
+    return {k: sum(r[1][1][j] for rec in steps.values() for r in rec)
+            for j, k in enumerate(K1P_K2P)}
 
 
 def _sphere_reach(np, T) -> float:
@@ -1251,14 +1338,14 @@ def multi_block_phase(torch, out_dir: str) -> dict:
         rec = steps[id(trainer)]
         check([r[0] for r in rec] == list(range(MB_STEPS)), f"block {k}: steps run")
         steady = [r for r in rec if r[0] % OCC_UPDATE_INTERVAL]
-        bad = [(r[0], r[1], r[2]) for r in steady if (r[1], r[2]) != (4, 4)]
+        bad = [r[:2] for r in steady if not _ngp_step_ok(r[1], 4)]
         check(not bad, f"block {k}: steps without an occupancy update whose K1p/K2p launches "
-              f"are not (4, 4): {bad[:8]}")
+              f"(host, replayed, captures, replays) are not 4/4: {bad[:8]}")
         calls = checks.get(id(trainer), [])
         check(len(calls) == MB_LEVELS and all(eq for _, _, eq in calls),
               f"block {k}: K2p against index_select at step {MB_CHECK_STEP}: {calls}")
         late = [r for r in steady if r[0] >= MB_STEPS - 64]
-        ms = statistics.mean(r[3].elapsed_time(r[4]) for r in late)
+        ms = statistics.mean(r[2].elapsed_time(r[3]) for r in late)
         val_psnr = trainer.validate(MB_STEPS)
         check(math.isfinite(val_psnr), f"block {k}: val psnr {val_psnr}")
         metrics, extracted = results[k]
@@ -1283,8 +1370,10 @@ def multi_block_phase(torch, out_dir: str) -> dict:
               f"{timings[model_dirs[k]]:.3f} s over {len(extracted['points'])} occupied voxels "
               f"and {cams} cameras ({rays / timings[model_dirs[k]]:.1f} rays/s), "
               f"{n_surface} surface voxels", flush=True)
-    print(f"multi-block: train_blocks {t2 - t1:.3f} s, eval_blocks {t3 - t2:.3f} s; launches "
-          f"in training K1p/K2p {train_launches}, in the whole run {launches}", flush=True)
+    replayed = _replayed_total(steps)
+    print(f"multi-block: train_blocks {t2 - t1:.3f} s, eval_blocks {t3 - t2:.3f} s; host "
+          f"launches in training K1p/K2p {train_launches}, in the whole run {launches}; "
+          f"replayed (derived) {replayed}", flush=True)
 
     shares = frame_shares(torch, np, model_dirs, frames, res, trainers[0].device)
     print(f"multi-block frames: share of block 0's surface voxels within {MB_FRAME_RADIUS} voxel "
@@ -1329,7 +1418,8 @@ def multi_block_phase(torch, out_dir: str) -> dict:
           f"weights RRE {agg['R_mean']:.4f} deg, RTE {agg['t_mean']:.5f}; classical baseline "
           f"RRE {base['R_error_deg']:.4f} deg, RTE {base['t_error']:.5f} in "
           f"{base['time']:.3f} s, winner {base['winner']}", flush=True)
-    return {"launches": launches, "train_launches": train_launches, "blocks": per_block,
+    return {"launches": launches, "train_launches": train_launches, "replayed": replayed,
+            "blocks": per_block,
             "frame_shares": shares, "baseline": {k: base[k] for k in ("R_error_deg", "t_error",
                                                                        "winner")},
             "grid": trainers[0].grid, "model_dirs": model_dirs, "subject": subject,
@@ -1411,12 +1501,12 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
     for key, rec in steps.items():
         check([r[0] for r in rec] == list(range(S3_NGP_STEPS)), "stage3 fleet: block steps run")
         steady = [r for r in rec if r[0] % OCC_UPDATE_INTERVAL]
-        bad = [(r[0], r[1], r[2]) for r in steady if (r[1], r[2]) != (S3_LEVELS, S3_LEVELS)]
+        bad = [r[:2] for r in steady if not _ngp_step_ok(r[1], S3_LEVELS)]
         check(not bad, f"stage3 fleet: steps without an occupancy update whose K1p/K2p launches "
-              f"are not ({S3_LEVELS}, {S3_LEVELS}): {bad[:8]}")
-        losses = torch.stack([r[5] for r in rec]).tolist()
+              f"(host, replayed, captures, replays) are not {S3_LEVELS}/{S3_LEVELS}: {bad[:8]}")
+        losses = torch.stack([r[4] for r in rec]).tolist()
         check(all(map(math.isfinite, losses)), "stage3 fleet: a non-finite stage-1 loss")
-        ms.append(statistics.mean(r[3].elapsed_time(r[4]) for r in steady[-64:]))
+        ms.append(statistics.mean(r[2].elapsed_time(r[3]) for r in steady[-64:]))
         k2p, k1p = k2p_checks.get(key, []), k1p_checks.get(key, [])
         check(len(k2p) == S3_LEVELS and all(eq for _, _, eq in k2p)
               and all(shape[1] == S3_WIDTH for shape, _, _ in k2p),
@@ -1466,13 +1556,14 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
           f"{max(r for _, _, r in k1p_checked):.4f}) on each level's call of step "
           f"{S3_CHECK_STEP} of every block ({len(k2p_checked)} + {len(k1p_checked)} calls, "
           f"rows {S3_WIDTH} wide); stage 3: {S3_REG_STEPS} steps, total loss "
-          f"{reg_losses[0]['total']:.4f} -> {reg_losses[-1]['total']:.4f}; launches in stage "
-          f"1-2 {ngp_launches}, in the whole run {launches}; seconds "
+          f"{reg_losses[0]['total']:.4f} -> {reg_losses[-1]['total']:.4f}; host launches in "
+          f"stage 1-2 {ngp_launches}, in the whole run {launches}; replayed (derived) "
+          f"{_replayed_total(steps)}; seconds "
           f"{ {k: round(v, 3) for k, v in seconds.items()} }", flush=True)
     print(f"stage3 fleet held-out {test_scenes}: RegTr (both block orders) {pairs['regtr']}; "
           f"baseline (first {S3_BASELINE_DRAWS}) {pairs['fgr']}", flush=True)
-    return {"launches": launches, "seconds": seconds, "ms_per_step": ms,
-            "surface_voxels": surface, "val_psnr": psnr, "pairs": pairs,
+    return {"launches": launches, "replayed": _replayed_total(steps), "seconds": seconds,
+            "ms_per_step": ms, "surface_voxels": surface, "val_psnr": psnr, "pairs": pairs,
             "k1p_worst_ratio": max(r for _, _, r in k1p_checked),
             "index_checks": len(k2p_checked) + len(k1p_checked)}
 
@@ -1664,23 +1755,25 @@ def marcher_phase(torch, grid, out_dir: str) -> dict:
         per_step, losses = [], []
         marks[0].record()
         for i in range(MARCH_STEPS):
-            before = (scatter_add_bf16.launches, gather_rows.launches)
+            before = _ngp_marks(trainer)
             m = trainer.train_iteration(i)
             marks[i + 1].record()
             losses.append(m["loss"])
-            per_step.append((scatter_add_bf16.launches - before[0],
-                             gather_rows.launches - before[1]))
+            per_step.append(_ngp_launches(trainer, before))
         torch.cuda.synchronize()
         losses = [float(x) for x in losses]
         check(all(math.isfinite(x) for x in losses), f"{mode}: losses {losses}")
-        check(all(p == (4, 4) for p in per_step[1:]),
-              f"{mode}: K1p/K2p launches a step {per_step}")
+        check(all(_ngp_step_ok(p, 4) for p in per_step[1:]),
+              f"{mode}: K1p/K2p launches (host, replayed, captures, replays) a step {per_step}")
         ms = statistics.mean(marks[i].elapsed_time(marks[i + 1]) for i in range(1, MARCH_STEPS))
+        replayed = {k: sum(p[1][j] for p in per_step) for j, k in enumerate(K1P_K2P)}
         out[mode] = {"launches": {"scatter_add_bf16": scatter_add_bf16.launches,
-                                  "gather_rows": gather_rows.launches}, "ms_per_step": ms}
+                                  "gather_rows": gather_rows.launches}, "replayed": replayed,
+                     "ms_per_step": ms}
         print(f"train [{mode}]: {MARCH_STEPS} steps from scratch at bucket {cfg.init_num_rays}, "
               f"steps 1-{MARCH_STEPS - 1} {ms:.2f} ms/step device; losses "
-              f"{[round(x, 5) for x in losses]}; launches a step {per_step}", flush=True)
+              f"{[round(x, 5) for x in losses]}; K1p/K2p launches a step (host, replayed "
+              f"(derived), captures, replays) {per_step}", flush=True)
         del trainer
         torch.cuda.empty_cache()
     return out
@@ -3283,6 +3376,7 @@ def train_pallas_phase(torch, out_dir: str) -> int:
     trainer = NGPTrainer(cfg, scene, val_scene)
     torch.cuda.synchronize()
     scatter_add.launches = 0  # count only this path's launches
+    start = _ngp_marks(trainer)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(PALLAS_STEPS + 1)]
     t0 = time.perf_counter()
     marks[0].record()
@@ -3293,19 +3387,25 @@ def train_pallas_phase(torch, out_dir: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = scatter_add.launches
+    (_,), (replayed,), captures, replays = _ngp_launches(trainer, start, ("scatter_add",))
     losses = [float(x) for x in losses]
     steady = STEADY
     steady_ms = sum(marks[i].elapsed_time(marks[i + 1]) for i in steady) / len(steady)
-    check(launches == 4 * PALLAS_STEPS,
-          f"K1 launched {launches} times in {PALLAS_STEPS} steps, expected 4 a step")
+    # every step a replay of a graph whose recording launched K1 4 times; the
+    # host launched K1 only at the captures (4 for the warm-up, 4 for the
+    # recording)
+    check(replays == PALLAS_STEPS and replayed == 4 * PALLAS_STEPS
+          and launches == 8 * captures,
+          f"K1 launched by the host {launches} times ({captures} captures), by {replays} "
+          f"replays {replayed} times in {PALLAS_STEPS} steps, expected 4 a step")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
     check(last < first, f"loss did not fall: first 8 {first}, last 8 {last}")
     print(f"train [pallas, no RLE]: {PALLAS_STEPS} steps in {wall:.3f} s wall; steps "
           f"{steady.start}-{steady.stop - 1} (no occupancy update) {steady_ms:.2f} ms/step "
           f"device at bucket {trainer.num_rays}; loss first 8 {first:.5f} last 8 {last:.5f}; "
-          f"K1 launches {launches}", flush=True)
-    return launches
+          f"K1 launches: host {launches}, replayed (derived) {replayed}", flush=True)
+    return launches, replayed
 
 
 def fields_parity(torch, dev) -> dict:
@@ -3530,7 +3630,9 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
     check(all(moved.values()), f"parameters that did not move: "
           f"{[k for k, v in moved.items() if not v]}")
     launches = _kernel_launches()
-    check(not any(launches.values()), f"--field {name} launched port kernels: {launches}")
+    check(not any(launches.values()) and not any(trainer.replayed_launches.values()),
+          f"--field {name} launched port kernels: host {launches}, replayed "
+          f"{trainer.replayed_launches}")
     _check_checkpoint_round_trip(torch, trainer, step)
     out = {"steps": FIELD_STEPS, "wall_s": run["wall_s"], "steady_ms": run["steady_ms"],
            "busy_ms": busy_ms, "profiled_wall_ms": profiled_ms,
@@ -3612,10 +3714,20 @@ def hash_ngp_phase(torch, out_dir: str) -> dict:
     n_surface = int((extracted["surface_mask"] & extracted["density_mask"]).sum())
     check(n_surface > 0, "the hash block has no surface voxel")
     launches = _kernel_launches()
-    check(not any(launches.values()), f"the hash NGP launched K1, K1p or K2p: {launches}")
+    replayed = trainer.replayed_launches
+    check(not any(launches.values()) and not any(replayed.get(k) for k in launches),
+          f"the hash NGP launched K1, K1p or K2p: host {launches}, replayed {replayed}")
     launches.update(hash_grid_fwd=hash_encode.launches, hash_grid_bwd=hash_encode.grad_launches)
-    check(hash_encode.grad_launches >= HASH_STEPS and hash_encode.launches > HASH_STEPS,
-          f"K6 launches {launches}")
+    # every step a replay of a graph whose recording launched K6 once each
+    # way; the host launched K6's backward only at the captures (warm-up and
+    # recording), its forward there and in the occupancy updates and the
+    # evaluation
+    replays, captures = trainer.graph_replays, trainer.graph_captures
+    check(replays >= HASH_STEPS and replayed["hash_grid_fwd"] == replayed["hash_grid_bwd"]
+          == replays and hash_encode.grad_launches == 2 * captures
+          and hash_encode.launches > 2 * captures,
+          f"K6 launches: host {launches}, replayed (derived) {replayed} in {replays} replays, "
+          f"{captures} captures")
     rays = len(points) * len(cams)
     out = {"steps": HASH_STEPS, "wall_s": run["wall_s"], "steady_ms": run["steady_ms"],
            "busy_ms": busy_ms, "profiled_wall_ms": profiled_ms,
@@ -3627,7 +3739,8 @@ def hash_ngp_phase(torch, out_dir: str) -> dict:
            "encoder": meta["model_config"]["encoder"], "eval_psnr": result["psnr"],
            "eval_s": t1 - t0, "sample_points_s": t2 - t1, "occupied_voxels": len(points),
            "surface_voxels": n_surface, "density_voxels": int(extracted["density_mask"].sum()),
-           "surface_rays_per_s": rays / (t3 - t2), "launches": launches}
+           "surface_rays_per_s": rays / (t3 - t2), "launches": launches,
+           "replayed": {k: replayed[k] for k in ("hash_grid_fwd", "hash_grid_bwd")}}
     print(f"hash NGP: {HASH_STEPS} steps in {run['wall_s']:.3f} s wall; steady "
           f"{run['steady_ms']:.2f} ms/step device ({run['samples']:.0f} samples a step, bucket "
           f"{run['bucket']}); profiled steps {busy_ms:.3f} ms/step busy of {profiled_ms:.3f} "
@@ -3685,8 +3798,8 @@ def main() -> int:
     timed("reference pallas", reference_phase, torch, dev, False)
     timed("reference defaults", reference_phase, torch, dev, True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        trainer, cfg, default_launches = timed("train defaults", train_default_phase, torch,
-                                               out_dir)
+        trainer, cfg, default_launches, default_replayed = timed(
+            "train defaults", train_default_phase, torch, out_dir)
         timed("extract", extract_phase, torch, trainer, cfg)
         multi = timed("multi-block", multi_block_phase, torch, out_dir)
         views = timed("novel views", novel_views_phase, torch, multi, out_dir)
@@ -3705,7 +3818,7 @@ def main() -> int:
         exact = timed("register train", register_train_phase, torch, root, subject, out_dir)
         torch.cuda.empty_cache()
         mesh = timed("mesh", mesh_phase, torch, out_dir, multi["model_dirs"][0], root, subject)
-        k1_launches = timed("train pallas", train_pallas_phase, torch, out_dir)
+        k1_launches, k1_replayed = timed("train pallas", train_pallas_phase, torch, out_dir)
     timed("K1p device", k1p_device_phase, torch, k1p)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fields_") as out_dir:
@@ -3715,9 +3828,13 @@ def main() -> int:
                       "mesh": mesh, "stage3 fleet": s3}), flush=True)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
-    def entry(name, source, replaces, launches, k):
+    # `launches` are the host's (the wrappers' counters); `replayed` those
+    # that the training steps' CUDA graph replays ran, derived from what
+    # each graph's recording launched
+    def entry(name, source, replaces, launches, replayed, k):
         return {"name": name, "route": "cuda", "source": f"dregnerf_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": k["max_abs_err"],
+                "replaces": replaces, "launches": launches, "replayed": replayed,
+                "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": "bytes", "library_ms": k["library_ms"]}
 
@@ -3730,17 +3847,27 @@ def main() -> int:
                 "compact": marchers["compact"]["launches"][name],
                 "quota": marchers["quota"]["launches"][name]}
 
+    def replayed_by_path(name):
+        return {"train defaults": default_replayed[name],
+                "multi-block": multi["replayed"][name],
+                "stage3-fleet": s3["replayed"][name],
+                "compact": marchers["compact"]["replayed"][name],
+                "quota": marchers["quota"]["replayed"][name]}
+
     kernels = [
         entry("scatter_add", "scatter_add.cu", "dregnerf_tpu/ops/pallas_scatter.py:122",
-              k1_launches, k1),
+              k1_launches, k1_replayed, k1),
         dict(entry("scatter_add_bf16", "scatter_add_bf16.cu",
                    "scripts/perf/probe_pallas_scatter.py:104",
-                   default_launches["scatter_add_bf16"], k1p),
+                   default_launches["scatter_add_bf16"], default_replayed["scatter_add_bf16"],
+                   k1p),
              launches_by_path=by_path("scatter_add_bf16"),
+             replayed_by_path=replayed_by_path("scatter_add_bf16"),
              device_ms=k1p["device_ms"], host_us=k1p["host_us"], sass_reduction=k1p_sass,
              worst_tol_ratio=k1p["worst_tol_ratio"]),
         dict(entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
-                   default_launches["gather_rows"], k2p),
+                   default_launches["gather_rows"], default_replayed["gather_rows"], k2p),
+             replayed_by_path=replayed_by_path("gather_rows"),
              launches_by_path=dict(by_path("gather_rows"),
                                    **{"novel views": views["k2p_launches"],
                                       "register train exact visibility": exact["k2p_launches"]}),
@@ -3750,10 +3877,11 @@ def main() -> int:
              exact_path={k: exact["k2p_exact"][k] for k in ("ms", "bound_ms",
                                                             "profiled_us_a_launch")}),
     ]
-    hash_launches = fields["hash_ngp"]["launches"]
+    hash_launches, hash_replayed = fields["hash_ngp"]["launches"], fields["hash_ngp"]["replayed"]
     for part, kernel in (("forward", "hash_grid_fwd"), ("backward", "hash_grid_bwd")):
         kernels.append(dict(entry(f"{kernel}_f32", "hash_grid.cu", "none (XLA in the JAX "
-                                  "package)", hash_launches[kernel], k6[part]),
+                                  "package)", hash_launches[kernel], hash_replayed[kernel],
+                                  k6[part]),
                             device_ms=k6[part]["device_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -161,6 +161,27 @@ def pack_table(table: torch.Tensor, config: PackedGridConfig) -> tuple:
     return tuple(packed_levels)
 
 
+_LEVEL_CONSTANTS: dict = {}
+
+
+def _level_constants(config: PackedGridConfig, device: torch.device) -> tuple:
+    """The encoder's per-level constants on `device`, made once a
+    (configuration, device): level scales [L] f32; the largest cell
+    res - 2, res^2 and res [L] int64; the corner offsets [8, 3] bool. (A
+    copy from the host on every call would wait for the device, and a
+    CUDA graph's capture cannot make one.)"""
+    key = (config, device)
+    consts = _LEVEL_CONSTANTS.get(key)
+    if consts is None:
+        res = config.level_resolutions()
+        consts = _LEVEL_CONSTANTS[key] = (
+            torch.as_tensor(config.level_scales(), device=device),
+            torch.as_tensor((res - 2).astype(np.int64), device=device),
+            torch.as_tensor(res * res, device=device), torch.as_tensor(res, device=device),
+            torch.as_tensor(_CORNERS, device=device).bool())
+    return consts
+
+
 def packed_encode(packed: tuple, x: torch.Tensor,
                   config: PackedGridConfig) -> torch.Tensor:
     """Encode positions x [..., 3] in [0, 1]^3 (clipped) with the packed
@@ -169,10 +190,8 @@ def packed_encode(packed: tuple, x: torch.Tensor,
     x = x.reshape(-1, 3).to(torch.float32).clamp(0.0, 1.0)
     n = x.shape[0]
     L, F = config.n_levels, config.n_features
-    dev = x.device
 
-    scales = torch.as_tensor(config.level_scales(), device=dev)  # [L] f32
-    res = config.level_resolutions()
+    scales, max_cell, A, B, corners = _level_constants(config, x.device)
     pos = x[:, None, :] * scales[None, :, None] + 0.5  # [N, L, 3]
     pos_floor = torch.floor(pos)
     frac = pos - pos_floor
@@ -181,14 +200,10 @@ def packed_encode(packed: tuple, x: torch.Tensor,
     # The slot arithmetic runs in int64: on wrapped levels
     # (lin mod 2^32) & (2^k - 1) == lin & (2^k - 1), and dense levels have
     # lin < res^3 <= 2^k, so it equals the reference's uint32 result.
-    max_cell = torch.as_tensor((res - 2).astype(np.int64), device=dev)
     cell = torch.minimum(pos_floor.to(torch.int32).clamp(min=0).long(),
                          max_cell[None, :, None])
-    A = torch.as_tensor(res * res, device=dev)
-    B = torch.as_tensor(res, device=dev)
     lin = cell[..., 0] * A[None, :] + cell[..., 1] * B[None, :] + cell[..., 2]
 
-    corners = torch.as_tensor(_CORNERS, device=dev).bool()  # [8, 3]
     f = frac[:, :, None, :]
     w = torch.where(corners[None, None], f, 1.0 - f).prod(dim=-1)  # [N, L, 8]
 

@@ -21,7 +21,12 @@ once every 8 steps with one interval of lag, so the host never waits for
 the step it just queued.
 
 The step's random draws (`StepDraws`) are tensors; the trainer draws them
-on the device from its own `torch.Generator`. `train()` runs each step
+on the device from its own `torch.Generator`. On one CUDA device with no
+mesh the step from the draws to Adam's update is one CUDA graph per ray
+bucket (runtime/ngp_graph.py): the occupancy update writes the grid in
+place, and the draws and the learning rate go into the graph's static
+inputs before each replay; `graph_captures` and `graph_replays` count
+its captures and replays. `train()` runs each step
 through the retry wrapper (an emergency checkpoint on a fatal error) under
 the hang watchdog (`--watchdog_s`; runtime/resilience.py). Scalars go to
 the ScalarLogger (the printed line, log.txt, and tensorboard with
@@ -69,7 +74,7 @@ from dregnerf_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     unflatten,
 )
-from dregnerf_tpu_torch.runtime import profiling
+from dregnerf_tpu_torch.runtime import ngp_graph, profiling
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -103,6 +108,16 @@ def multistep_lr(base_lr: float, max_steps: int, gamma: float = 0.33) -> Callabl
     return lr
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """`lr` into every parameter group; a device learning rate (a CUDA
+    graph's) is written in place."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
 class StepDraws(NamedTuple):
     """The random inputs of one training step."""
 
@@ -113,15 +128,28 @@ class StepDraws(NamedTuple):
     jitter: torch.Tensor  # [R, 1] f32
 
 
+def draw_spec(num_rays: int) -> StepDraws:
+    """The (shape, dtype) of each of a step's draws at `num_rays` rays."""
+    ray = ((num_rays,), torch.int64)
+    return StepDraws(img_id=ray, x=ray, y=ray, bg=((3,), torch.float32),
+                     jitter=((num_rays, 1), torch.float32))
+
+
 def draw_step_inputs(generator: torch.Generator, num_rays: int, num_images: int,
-                     height: int, width: int, device) -> StepDraws:
-    def randint(high):
-        return torch.randint(0, high, (num_rays,), generator=generator, device=device)
+                     height: int, width: int, device,
+                     out: StepDraws | None = None) -> StepDraws:
+    """A step's draws from `generator`; with `out` (draws of num_rays rays),
+    drawn into its tensors, in the same order from the same stream."""
+    out = out or StepDraws(*(None,) * len(StepDraws._fields))
+
+    def randint(high, buf):
+        return torch.randint(0, high, (num_rays,), generator=generator, device=device, out=buf)
 
     return StepDraws(
-        img_id=randint(num_images), x=randint(width), y=randint(height),
-        bg=torch.rand(3, generator=generator, device=device),
-        jitter=torch.rand(num_rays, 1, generator=generator, device=device))
+        img_id=randint(num_images, out.img_id), x=randint(width, out.x),
+        y=randint(height, out.y),
+        bg=torch.rand(3, generator=generator, device=device, out=out.bg),
+        jitter=torch.rand(num_rays, 1, generator=generator, device=device, out=out.jitter))
 
 
 def step_loss(params, model_config, render_config: RenderConfig,
@@ -177,7 +205,16 @@ def _host_reader(t: torch.Tensor) -> Callable[[], int]:
 class NGPTrainer:
     """Trains one NeRF block on `device` (default cuda, see
     dregnerf_tpu_torch.device; `config.device` is read when the argument
-    is None)."""
+    is None). On one CUDA device with no mesh the step runs as a CUDA
+    graph (runtime/ngp_graph.py); `graph_captures` and `graph_replays`
+    count its captures and replays, and `replayed_launches` what the
+    replays ran of each kernel (derived from what each graph's recording
+    launched: a replay runs no kernel wrapper)."""
+
+    _graph = None  # the single-device step's ngp_graph.StepGraphs
+    graph_captures = 0
+    graph_replays = 0
+    replayed_launches: dict = {}  # replaced, never changed in place
 
     def __init__(self, config, scene: SceneData, val_scene: Optional[SceneData] = None,
                  output_dir: Optional[str] = None, device=None):
@@ -271,10 +308,12 @@ class NGPTrainer:
                                           betas=(0.9, 0.999), eps=1e-15)
 
     # ------------------------------------------------------------- train step
-    def apply_gradients(self, step: int) -> None:
-        """Adam update number `step` with the scheduled learning rate."""
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_at(step)
+    def apply_gradients(self, step: int | None) -> None:
+        """Adam update number `step` with the scheduled learning rate; None
+        keeps the rate set (a CUDA graph's body, whose device learning rate
+        is written before each replay)."""
+        if step is not None:
+            set_lr(self.optimizer, self.lr_at(step))
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
@@ -282,7 +321,8 @@ class NGPTrainer:
     def update_occupancy(self, step: int, **draws) -> None:
         """The EMA update of step `step` (warmup below OCC_WARMUP_STEPS),
         with the draws of occupancy.update_grid from the trainer's
-        generator unless given."""
+        generator unless given, written in place into the grid's tensors
+        (which a CUDA graph of the step reads)."""
         cfg = self.config
         params = self.field.prepare_params(self.params, self.model_config)
 
@@ -294,10 +334,12 @@ class NGPTrainer:
                 * self.render_step_size
                 for c in u.split(OCC_EVAL_CHUNK)])
 
-        self.grid = occupancy.update_grid(
+        grid = occupancy.update_grid(
             self.grid, occ_fn, warmup=step < OCC_WARMUP_STEPS,
             n_samples=min(cfg.grid_resolution**3 // 4, 1 << 17),
             generator=self.generator, **draws)
+        self.grid.occs.copy_(grid.occs)
+        self.grid.binary.copy_(grid.binary)
 
     def train_iteration(self, step: int, draws: StepDraws | None = None) -> dict:
         """One training step (on `draws`, else on rays drawn here: the
@@ -308,6 +350,14 @@ class NGPTrainer:
                 with profiling.annotate("ngp.occupancy"):
                     self.update_occupancy(step)
             bucket = self.num_rays
+            if ngp_graph.engages(self):
+                if self._graph is None or self._graph.optimizer is not self.optimizer:
+                    self._graph = None  # the old graphs' memory goes first
+                    self._graph = ngp_graph.StepGraphs(self)
+                metrics = self._graph.step(self, step, bucket, draws)
+                self._feed_back(step, bucket, metrics["n_samples"])
+                metrics["num_rays"] = bucket
+                return metrics
             if draws is None:
                 n = bucket if self.mesh is None else max(bucket // self.mesh.size, 1)
                 draws = draw_step_inputs(self.ray_generator, n, self.scene.num_images,
@@ -329,19 +379,25 @@ class NGPTrainer:
                     self.scene.opengl, self.field, self.timestamps)
             with profiling.annotate("ngp.optimizer"):
                 self.apply_gradients(step)
-                # ray bucket feedback from the count saved at the previous sync
-                if step % BATCH_SYNC_INTERVAL == 0:
-                    prev = self._pending_n_samples
-                    self._pending_n_samples = (bucket, _host_reader(metrics["n_samples"]))
-                    if prev is not None:
-                        prev_bucket, n_samples = prev[0], prev[1]()
-                        if n_samples > 0:
-                            ideal = prev_bucket * self.config.sample_budget / n_samples
-                            new_bucket = 1 << int(round(math.log2(max(ideal, 1))))
-                            self.num_rays = int(np.clip(new_bucket, self.config.init_num_rays,
-                                                        self.config.max_num_rays))
+                self._feed_back(step, bucket, metrics["n_samples"])
             metrics["num_rays"] = bucket
             return metrics
+
+    def _feed_back(self, step: int, bucket: int, n_samples: torch.Tensor) -> None:
+        """The ray bucket feedback, from the count saved at the previous
+        sync (every BATCH_SYNC_INTERVAL steps; its host read waits for that
+        copy only)."""
+        if step % BATCH_SYNC_INTERVAL:
+            return
+        prev = self._pending_n_samples
+        self._pending_n_samples = (bucket, _host_reader(n_samples))
+        if prev is not None:
+            prev_bucket, n = prev[0], prev[1]()
+            if n > 0:
+                ideal = prev_bucket * self.config.sample_budget / n
+                new_bucket = 1 << int(round(math.log2(max(ideal, 1))))
+                self.num_rays = int(np.clip(new_bucket, self.config.init_num_rays,
+                                            self.config.max_num_rays))
 
     def train(self) -> None:
         """The step loop under the hang watchdog (a stale heartbeat exits the
@@ -473,11 +529,15 @@ class NGPTrainer:
         with torch.no_grad():
             for k, p in paths.items():
                 p.copy_(torch.as_tensor(flat[f"model::{k}"], dtype=torch.float32))
+        self._graph = None  # its graphs read the state replaced here
         if not self.config.no_load_opt and "optimizer::0/count" in flat:
             count = float(flat["optimizer::0/count"])
+            # a capturable Adam (the CUDA graph's) keeps its counts on the device
+            count_device = (self.device if self.optimizer.param_groups[0].get("capturable")
+                            else "cpu")
             for k, p in paths.items():
                 self.optimizer.state[p] = {
-                    "step": torch.tensor(count),
+                    "step": torch.tensor(count, device=count_device),
                     **{name: torch.as_tensor(flat[f"optimizer::0/{m}/{k}"],
                                              dtype=torch.float32, device=self.device)
                        for name, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
