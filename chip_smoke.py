@@ -35,7 +35,7 @@ Phases, in order; any failure exits non-zero:
      torch.profiler (the device's busy share and the kernels that take
      most of a step),
      one validate() render; every step a replay of the trainer's CUDA
-     graph (runtime/ngp_graph.py, one capture a ray bucket), each steady
+     graph (runtime/step_graph.py, one capture a ray bucket), each steady
      step's (49-63, no occupancy update) graph recorded with 4 K1p and 4
      K2p launches and the host launching neither outside a capture, the
      run-length backward counted once a steady step, its overflow
@@ -906,7 +906,7 @@ def profile_phase(torch, trainer, first_step: int) -> tuple[float, float]:
     return busy_ms, wall_ms
 
 
-# K1p and K2p's launch counters (runtime/ngp_graph.py::launch_counters)
+# K1p and K2p's launch counters (runtime/ngp_trainer.py::launch_counters)
 K1P_K2P = ("scatter_add_bf16", "gather_rows")
 # each launch counter's kernel, as the profiler names it
 PORT_KERNEL_OF = {"scatter_add": "scatter_add_rows_f32x4",
@@ -918,9 +918,9 @@ PORT_KERNEL_OF = {"scatter_add": "scatter_add_rows_f32x4",
 def _ngp_marks(trainer) -> tuple:
     """What `_ngp_launches` counts from: the kernels' host launches, the
     launches the trainer's replays ran, its captures and its replays."""
-    from dregnerf_tpu_torch.runtime import ngp_graph
+    from dregnerf_tpu_torch.runtime import ngp_trainer
 
-    return (ngp_graph.launches(), dict(trainer.replayed_launches), trainer.graph_captures,
+    return (ngp_trainer.launches(), dict(trainer.replayed_launches), trainer.graph_captures,
             trainer.graph_replays)
 
 
@@ -1131,7 +1131,7 @@ def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks
     from dregnerf_tpu_torch.ops import packed_grid, rle
     from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
     from dregnerf_tpu_torch.ops.scatter_add import _chosen, scatter_add_bf16, scatter_add_bf16_plain
-    from dregnerf_tpu_torch.runtime import ngp_graph
+    from dregnerf_tpu_torch.runtime import step_graph
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
     real_step, real_gather = NGPTrainer.train_iteration, packed_grid.gather_rows
@@ -1166,14 +1166,14 @@ def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks
         before = _ngp_marks(self)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        graphed = ngp_graph.DEVICE_TYPES
+        graphed = step_graph.DEVICE_TYPES
         if i == record_step:
-            ngp_graph.DEVICE_TYPES = ()
+            step_graph.DEVICE_TYPES = ()
         try:
             out = real_step(self, i)
         finally:
             current[0] = None
-            ngp_graph.DEVICE_TYPES = graphed
+            step_graph.DEVICE_TYPES = graphed
         end.record()
         steps.setdefault(key, []).append((i, _ngp_launches(self, before), start, end,
                                           out["loss"]))

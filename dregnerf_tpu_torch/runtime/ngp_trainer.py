@@ -21,16 +21,22 @@ once every 8 steps with one interval of lag, so the host never waits for
 the step it just queued.
 
 The step's random draws (`StepDraws`) are tensors; the trainer draws them
-on the device from its own `torch.Generator`. On one CUDA device with no
-mesh the step from the draws to Adam's update is one CUDA graph per ray
-bucket (runtime/ngp_graph.py): the occupancy update writes the grid in
-place, and the draws and the learning rate go into the graph's static
-inputs before each replay; `graph_captures` and `graph_replays` count
-its captures and replays. `train()` runs each step
+on the device from its own `torch.Generator`. `train()` runs each step
 through the retry wrapper (an emergency checkpoint on a fatal error) under
 the hang watchdog (`--watchdog_s`; runtime/resilience.py). Scalars go to
 the ScalarLogger (the printed line, log.txt, and tensorboard with
 `--enable_tensorboard`) and to log.jsonl.
+
+On one card with no mesh every shape of the step is set by its ray bucket
+(the sample buffer has `RenderConfig.buffer_size` rows, the run-length
+backward picks its branch on the device, K1p bounds its rows by a device
+count), so `_step_on` (draws to Adam's update) is one CUDA graph per
+bucket (runtime/step_graph.py), the buckets' graphs in one memory pool.
+Eager around a replay: the occupancy update (in place into the grid the
+graph reads); the draws, copied or drawn into the bucket's buffers; the
+learning rate, written into Adam's device rate (`capturable=True` on the
+card); the bucket feedback. The kernels' launch counters count host
+launches only (never a replay's); `replayed_launches` derives the replays'.
 
 With `--mesh_shape N` (N ranks under torchrun) each step is the
 data-parallel step of parallel/ngp_dp.py: rank 0's initial weights are
@@ -47,6 +53,7 @@ import json
 import math
 import os
 import time
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -74,7 +81,7 @@ from dregnerf_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     unflatten,
 )
-from dregnerf_tpu_torch.runtime import ngp_graph, profiling
+from dregnerf_tpu_torch.runtime import profiling, step_graph
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -185,6 +192,66 @@ def step_loss(params, model_config, render_config: RenderConfig,
                   "alive_rays": n_alive}
 
 
+def launch_counters() -> dict:
+    """(wrapper, attribute) of each kernel launch counter a step may
+    advance, by the kernel's name."""
+    from dregnerf_tpu_torch.ops import gather_rows, hash_encoding, scatter_add
+
+    return {"scatter_add": (scatter_add.scatter_add, "launches"),
+            "scatter_add_bf16": (scatter_add.scatter_add_bf16, "launches"),
+            "gather_rows": (gather_rows.gather_rows, "launches"),
+            "hash_grid_fwd": (hash_encoding.hash_encode, "launches"),
+            "hash_grid_bwd": (hash_encoding.hash_encode, "grad_launches")}
+
+
+def launches() -> dict[str, int]:
+    """The host launches each kernel's wrapper has counted, by kernel."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+
+
+def _make_capturable(optimizer, device) -> None:
+    """Turns Adam `optimizer` capturable with one learning rate on `device`
+    (its counts move there too)."""
+    lr = torch.tensor(float(optimizer.param_groups[0]["lr"]), device=device)
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        group["lr"] = lr
+    for state in optimizer.state.values():
+        if "step" in state:
+            state["step"] = state["step"].to(device)
+
+
+def _init_state(optimizer, params: list) -> None:
+    """Adam's state of each parameter that has none, as its first update
+    would make it (so that the warm-up can put it back)."""
+    for p in params:
+        if not optimizer.state[p]:
+            count = p.device if optimizer.param_groups[0]["capturable"] else "cpu"
+            optimizer.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32, device=count),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+
+class _StepGraphs:
+    """The single-device step's graphs, with their shared pool, the Adam they
+    update (made capturable on the card) and the state a warm-up puts back.
+    `buckets`: {draws' (shape, dtype): (static draws, what the recording
+    launched of each kernel, its StepGraph)}."""
+
+    def __init__(self, trainer: "NGPTrainer"):
+        opt = self.optimizer = trainer.optimizer
+        dev = torch.device(trainer.device)
+        if dev.type == "cuda":
+            _make_capturable(opt, dev)
+        params = [p for group in opt.param_groups for p in group["params"]]
+        _init_state(opt, params)
+        self.state = [p.detach() for p in params] + [
+            opt.state[p][k] for p in params for k in ("exp_avg", "exp_avg_sq", "step")]
+        self.pool = step_graph.new_pool(dev)
+        self.buckets: dict = {}
+
+
 def _host_reader(t: torch.Tensor) -> Callable[[], int]:
     """Start copying scalar `t` to the host; the returned call waits for
     that copy only (not for work queued after it) and gives its value."""
@@ -206,12 +273,12 @@ class NGPTrainer:
     """Trains one NeRF block on `device` (default cuda, see
     dregnerf_tpu_torch.device; `config.device` is read when the argument
     is None). On one CUDA device with no mesh the step runs as a CUDA
-    graph (runtime/ngp_graph.py); `graph_captures` and `graph_replays`
+    graph (runtime/step_graph.py); `graph_captures` and `graph_replays`
     count its captures and replays, and `replayed_launches` what the
     replays ran of each kernel (derived from what each graph's recording
     launched: a replay runs no kernel wrapper)."""
 
-    _graph = None  # the single-device step's ngp_graph.StepGraphs
+    _graph = None  # the single-device step's _StepGraphs
     graph_captures = 0
     graph_replays = 0
     replayed_launches: dict = {}  # replaced, never changed in place
@@ -350,38 +417,85 @@ class NGPTrainer:
                 with profiling.annotate("ngp.occupancy"):
                     self.update_occupancy(step)
             bucket = self.num_rays
-            if ngp_graph.engages(self):
-                if self._graph is None or self._graph.optimizer is not self.optimizer:
-                    self._graph = None  # the old graphs' memory goes first
-                    self._graph = ngp_graph.StepGraphs(self)
-                metrics = self._graph.step(self, step, bucket, draws)
-                self._feed_back(step, bucket, metrics["n_samples"])
-                metrics["num_rays"] = bucket
-                return metrics
-            if draws is None:
-                n = bucket if self.mesh is None else max(bucket // self.mesh.size, 1)
-                draws = draw_step_inputs(self.ray_generator, n, self.scene.num_images,
-                                         self.scene.height, self.scene.width, self.device)
-            if self.mesh is None:
-                loss, metrics = step_loss(
-                    self.params, self.model_config, self.render_config, self.grid,
-                    self.aabb, self.images, self.c2ws, self.K, draws,
-                    self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
-                with profiling.annotate("ngp.backward"):
-                    loss.backward()
-                metrics["loss"] = loss.detach()
+            if self._graphed():
+                metrics = self._graph_step(step, bucket, draws)
             else:
-                from dregnerf_tpu_torch.parallel.ngp_dp import dp_train_step
+                if draws is None:
+                    n = bucket if self.mesh is None else max(bucket // self.mesh.size, 1)
+                    draws = draw_step_inputs(self.ray_generator, n, self.scene.num_images,
+                                             self.scene.height, self.scene.width, self.device)
+                if self.mesh is None:
+                    metrics = self._step_on(draws, step)
+                else:
+                    from dregnerf_tpu_torch.parallel.ngp_dp import dp_train_step
 
-                metrics = dp_train_step(
-                    self.mesh, self.params, self.model_config, self.render_config, self.grid,
-                    self.aabb, self.images, self.c2ws, self.K, draws, self.scene.synthetic,
-                    self.scene.opengl, self.field, self.timestamps)
-            with profiling.annotate("ngp.optimizer"):
-                self.apply_gradients(step)
-                self._feed_back(step, bucket, metrics["n_samples"])
+                    metrics = dp_train_step(
+                        self.mesh, self.params, self.model_config, self.render_config,
+                        self.grid, self.aabb, self.images, self.c2ws, self.K, draws,
+                        self.scene.synthetic, self.scene.opengl, self.field, self.timestamps)
+                    with profiling.annotate("ngp.optimizer"):
+                        self.apply_gradients(step)
+            self._feed_back(step, bucket, metrics["n_samples"])
             metrics["num_rays"] = bucket
             return metrics
+
+    def _step_on(self, draws: StepDraws, step: int | None) -> dict:
+        """One device's step on `draws`: the loss, its backward and Adam's
+        update number `step` (None keeps the learning rate set, as a CUDA
+        graph's body does); its metrics."""
+        loss, metrics = step_loss(
+            self.params, self.model_config, self.render_config, self.grid, self.aabb,
+            self.images, self.c2ws, self.K, draws, self.scene.synthetic, self.scene.opengl,
+            self.field, self.timestamps)
+        with profiling.annotate("ngp.backward"):
+            loss.backward()
+        metrics["loss"] = loss.detach()
+        with profiling.annotate("ngp.optimizer"):
+            self.apply_gradients(step)
+        return metrics
+
+    def _graphed(self) -> bool:
+        """Whether the step runs as a CUDA graph: on the card, with no mesh
+        (the data-parallel step stays eager)."""
+        return torch.device(self.device).type in step_graph.DEVICE_TYPES and self.mesh is None
+
+    def _graph_step(self, step: int, bucket: int, draws: StepDraws | None) -> dict:
+        """Step `step` on `draws` (else drawn here at `bucket` rays) as one
+        replay of its bucket's graph, captured at the bucket's first step."""
+        if self._graph is None or self._graph.optimizer is not self.optimizer:
+            self._graph = None  # the old graphs' memory goes first
+            self._graph = _StepGraphs(self)
+        key = (tuple(draw_spec(bucket)) if draws is None
+               else tuple((tuple(t.shape), t.dtype) for t in draws))
+        if key not in self._graph.buckets:
+            buffers = StepDraws(*(torch.empty(shape, dtype=dtype, device=self.device)
+                                  for shape, dtype in key))
+            launched: dict = {}
+            tr = weakref.proxy(self)  # see step_graph's docstring
+
+            def body() -> dict:
+                before = launches()
+                metrics = tr._step_on(buffers, None)  # at the learning rate set
+                launched.update({k: v - before[k] for k, v in launches().items()})
+                return metrics
+
+            self._graph.buckets[key] = (buffers, launched, step_graph.StepGraph(
+                "ngp", body, self._graph.state, self._graph.pool))
+        buffers, launched, graph = self._graph.buckets[key]
+        if draws is None:
+            draw_step_inputs(self.ray_generator, bucket, self.scene.num_images,
+                             self.scene.height, self.scene.width, self.device, out=buffers)
+        else:
+            for buf, t in zip(buffers, draws):
+                buf.copy_(t)
+        set_lr(self.optimizer, self.lr_at(step))
+        captured = graph.captured
+        metrics = graph.replay()
+        self.graph_captures += not captured
+        self.graph_replays += 1
+        self.replayed_launches = {k: self.replayed_launches.get(k, 0) + v
+                                  for k, v in launched.items()}
+        return metrics
 
     def _feed_back(self, step: int, bucket: int, n_samples: torch.Tensor) -> None:
         """The ray bucket feedback, from the count saved at the previous

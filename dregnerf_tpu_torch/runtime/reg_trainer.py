@@ -42,18 +42,21 @@ from __future__ import annotations
 import json
 import os
 import time
+import weakref
 from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from dregnerf_tpu_torch.datasets.register_pairs import device_augment
 from dregnerf_tpu_torch.geometry import se3
+from dregnerf_tpu_torch.geometry.kabsch import rigid_from_moments
 from dregnerf_tpu_torch.losses import registration as L
 from dregnerf_tpu_torch.losses.visibility import grid_visibility
 from dregnerf_tpu_torch.models.regtr import NeRFRegTr
 from dregnerf_tpu_torch.parallel.mesh import barrier, is_main
-from dregnerf_tpu_torch.runtime import profiling, reg_graph
+from dregnerf_tpu_torch.runtime import profiling, step_graph
 from dregnerf_tpu_torch.runtime.logging import ScalarLogger
 from dregnerf_tpu_torch.runtime.resilience import Watchdog, run_with_retries
 
@@ -61,6 +64,74 @@ BATCH_KEYS = ("src_grid", "tgt_grid", "src_mask", "tgt_mask", "pose")
 LOSS_WEIGHTS = {"overlap": 1.0, "nerf_cont": 1.0, "feature": 0.1, "corr": 1.0}
 ADAM_PREFIX = "optimizer::1/0/"  # optax chain(clip, adamw): adam state, then the schedule's
 SCHEDULE_COUNT_KEY = "optimizer::1/2/count"
+MOMENTS = ("centroid_src", "centroid_tgt", "covariance")  # `weighted_moments`' three
+
+
+def augment_pair(batch: Dict, p: Dict, noise: Optional[Dict], scale: float, clip: float) -> Dict:
+    """`batch` with both grids through `device_augment`: moved by `p["p_src"]`
+    and `p["p_tgt"]` [4, 4] and jittered by `noise` {"src", "tgt"} [R^3, 3]
+    (None: no jitter) at (scale, clip)."""
+    out = dict(batch)
+    for side in ("src", "tgt"):
+        noise_side = None if noise is None else noise[side]
+        out[f"{side}_grid"] = device_augment(batch[f"{side}_grid"], batch[f"{side}_mask"],
+                                             p[f"p_{side}"], noise_side, scale, clip)
+    return out
+
+
+class _CachedStepGraph:
+    """The device-cached step's graph and its static inputs, bound to `key`
+    (the inputs' shapes and dtypes and the jitter) and to the optimizer:
+    the grids and masks `sides`, the [4, 4] `matrices` `pose`, `p_src` and
+    `p_tgt` (uploaded through pinned buffers), and the jitter's noise, for
+    (scale, clip) `jitter`, scale 0 for none."""
+
+    def __init__(self, trainer: "RegTrainer", key: tuple, sides: Dict, matrices: Dict,
+                 jitter: tuple):
+        dev = torch.device(trainer.device)
+        opt = self.optimizer = trainer.optimizer
+        self.key = key
+        self.sides = {k: torch.empty_like(v) for k, v in sides.items()}
+        self.matrices = {k: torch.empty(m.shape, dtype=m.dtype, device=dev)
+                         for k, m in matrices.items()}
+        self.staging = self.uploaded = None
+        if dev.type == "cuda":
+            self.staging = {k: torch.empty(m.shape, dtype=m.dtype, pin_memory=True)
+                            for k, m in matrices.items()}
+            self.uploaded = torch.cuda.Event()
+        self.noise = None
+        if jitter[0]:
+            n = sides["src_mask"].shape[0]
+            self.noise = {s: torch.empty(n, 3, device=dev) for s in ("src", "tgt")}
+        tr, inputs, m, noise = weakref.proxy(trainer), self.sides, self.matrices, self.noise
+
+        def body() -> Dict:
+            batch = augment_pair({**inputs, "pose": m["pose"]}, m, noise, *jitter)
+            metrics = tr._step([batch], solve_pose=False)
+            moments = metrics.pop("pose_moments")
+            return {**metrics, **dict(zip(MOMENTS, moments))}
+
+        self.graph = step_graph.StepGraph(
+            "regtr", body, [opt.flat, opt.mu, opt.nu, opt.count, opt.schedule_count])
+
+    def fill(self, sides: Dict, matrices: Dict, generator: torch.Generator) -> None:
+        """The step's inputs into the static buffers (the matrices
+        non_blocking, once the previous upload has read the pinned ones),
+        and its noise drawn from `generator` in the eager step's order."""
+        for k, v in sides.items():
+            self.sides[k].copy_(v)
+        if self.staging is None:
+            for k, m in matrices.items():
+                self.matrices[k].copy_(m)
+        else:
+            self.uploaded.synchronize()  # the previous step's upload has read them
+            for k, m in matrices.items():
+                self.staging[k].copy_(m)
+                self.matrices[k].copy_(self.staging[k], non_blocking=True)
+            self.uploaded.record()
+        if self.noise is not None:
+            for s in ("src", "tgt"):
+                torch.randn(self.noise[s].shape, generator=generator, out=self.noise[s])
 
 
 def make_reg_model(config, dtype: torch.dtype = torch.float32) -> NeRFRegTr:
@@ -176,11 +247,11 @@ class RegTrainer:
     unless a checkpoint is loaded.
 
     On the card, the device-cached step at batch 1 with grid labels and no
-    mesh runs as a CUDA graph (runtime/reg_graph.py); `graph_captures` and
+    mesh runs as a CUDA graph (runtime/step_graph.py); `graph_captures` and
     `graph_replays` count its captures and replays."""
 
     # class-level, so that a trainer made without __init__ reads them too
-    _graph = None  # the device-cached step's reg_graph.StepGraph
+    _graph = None  # the device-cached step's _CachedStepGraph
     graph_captures = 0
     graph_replays = 0
 
@@ -341,19 +412,15 @@ class RegTrainer:
         return js, float(getattr(ds, "jitter_clip", 0.05))
 
     def _augment(self, batch: Dict, aug: Dict) -> Dict:
-        """`device_augment` of both sides (jitter noise from the trainer's
-        device generator unless the item asks for no jitter)."""
-        from dregnerf_tpu_torch.datasets.register_pairs import device_augment
-
+        """`augment_pair` of an item's batch (jitter noise from the trainer's
+        device generator, src then tgt, unless the item asks for no jitter)."""
         js, clip = self._jitter(aug)
-        out = dict(batch)
-        for side in ("src", "tgt"):
-            grid, mask = batch[f"{side}_grid"], batch[f"{side}_mask"]
-            noise = (torch.randn(mask.shape[0], 3, generator=self._aug_gen, device=self.device)
-                     if js else None)
-            p = torch.as_tensor(aug[f"p_{side}"], device=self.device)
-            out[f"{side}_grid"] = device_augment(grid, mask, p, noise, js, clip)
-        return out
+        noise = None
+        if js:
+            noise = {s: torch.randn(batch[f"{s}_mask"].shape[0], 3, generator=self._aug_gen,
+                                    device=self.device) for s in ("src", "tgt")}
+        p = {k: torch.as_tensor(aug[k], device=self.device) for k in ("p_src", "p_tgt")}
+        return augment_pair(batch, p, noise, js, clip)
 
     def _get_vis_ctx(self, path: str):
         """LRU-cached VisibilityContext of one NeRF checkpoint; every
@@ -413,22 +480,34 @@ class RegTrainer:
     def _graphed(self) -> bool:
         """Whether the device-cached step runs as a CUDA graph: on the card, at
         batch 1, with grid labels and no mesh."""
-        return (torch.device(self.device).type in reg_graph.DEVICE_TYPES
+        return (torch.device(self.device).type in step_graph.DEVICE_TYPES
                 and self.batch_size == 1 and self.mesh is None and self.visibility != "exact")
 
     def _graph_step(self, item: Dict) -> Dict:
         """The device-cached step as a replay of its CUDA graph, captured anew
-        when its inputs' shapes, the jitter or the optimizer change."""
+        when its inputs' shapes, the jitter or the optimizer change. The
+        host solves every layer's Kabsch moments after it (cuSOLVER's SVD
+        reads the device), as the forward would; the pose is in no loss."""
         with profiling.annotate("regtr.inputs"):
-            sides, matrices = self._cached_sides(item), reg_graph.matrices(item)
+            sides = self._cached_sides(item)
+            matrices = {"pose": torch.as_tensor(item["pose"]),
+                        **{k: torch.as_tensor(item["aug"][k]) for k in ("p_src", "p_tgt")}}
             jitter = self._jitter(item["aug"])
+            key = (jitter, *((k, tuple(t.shape), t.dtype)
+                             for k, t in {**sides, **matrices}.items()))
             g = self._graph
-            if (g is None or g.optimizer is not self.optimizer
-                    or g.key != reg_graph.key(sides, matrices, jitter)):
+            if g is None or g.optimizer is not self.optimizer or g.key != key:
                 self._graph = None  # the old graph's memory goes first
-                g = self._graph = reg_graph.StepGraph(self, sides, matrices, jitter)
+                g = self._graph = _CachedStepGraph(self, key, sides, matrices, jitter)
             g.fill(sides, matrices, self._aug_gen)
-        return g.step(self)
+        captured = g.graph.captured
+        metrics = g.graph.replay()
+        self.graph_captures += not captured
+        self.graph_replays += 1
+        pose = rigid_from_moments(*(metrics.pop(k) for k in MOMENTS))[-1, 0]
+        skipped = metrics.pop("skipped_nonfinite")
+        return {**metrics, **self.pose_metrics(pose, g.matrices["pose"]),
+                "skipped_nonfinite": skipped}
 
     def train_iteration_batch(self, items) -> Dict:
         """One step over several pairs (the gradient of their mean loss)."""

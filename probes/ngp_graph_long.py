@@ -7,8 +7,8 @@ on one CUDA card.
 For each of the benchmark's stage-1 configurations (benchmark/configs/
 ngp-l4f8.json, then ngp-hash-l16f2.json) on the benchmark's scene (100
 views of 192 px), three trainers from one seed: one whose steps are
-replays of its CUDA graphs (runtime/ngp_graph.py, the default on the
-card), and two whose steps run eagerly (`ngp_graph.DEVICE_TYPES`
+replays of its CUDA graphs (runtime/step_graph.py, the default on the
+card), and two whose steps run eagerly (`step_graph.DEVICE_TYPES`
 cleared), each for `--steps` steps through `train_iteration` with its
 occupancy updates and ray-bucket feedback. All draw their rays from their
 own generators, so they see the same rays while their buckets agree. The
@@ -39,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from benchmark.drivers import ngp_block, ngp_hash_train  # noqa: E402
-from dregnerf_tpu_torch.runtime import ngp_graph  # noqa: E402
+from dregnerf_tpu_torch.runtime import step_graph  # noqa: E402
 from dregnerf_tpu_torch.runtime.config import config_parser  # noqa: E402
 from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer  # noqa: E402
 
@@ -50,9 +50,9 @@ WINDOW = 100
 def run(flags: list, scene, steps: int, graphed: bool) -> dict:
     """`steps` steps of a trainer built from `flags`, as graph replays or
     eagerly: the losses, the buckets, the validation PSNR and ms a step."""
-    kept = ngp_graph.DEVICE_TYPES
+    kept = step_graph.DEVICE_TYPES
     if not graphed:
-        ngp_graph.DEVICE_TYPES = ()
+        step_graph.DEVICE_TYPES = ()
     try:
         tr = NGPTrainer(config_parser(flags), scene, device="cuda")
         losses, buckets = [], []
@@ -66,7 +66,7 @@ def run(flags: list, scene, steps: int, graphed: bool) -> dict:
         ms = (time.perf_counter() - t0) / steps * 1e3
         val_psnr = tr.validate(steps)
     finally:
-        ngp_graph.DEVICE_TYPES = kept
+        step_graph.DEVICE_TYPES = kept
     return {"losses": torch.stack(losses).tolist(), "buckets": buckets, "val_psnr": val_psnr,
             "ms_a_step": ms, "captures": tr.graph_captures, "replays": tr.graph_replays}
 

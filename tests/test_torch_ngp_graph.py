@@ -1,15 +1,15 @@
 """The NGP trainer's single-device step as a CUDA graph per ray bucket
-(dregnerf_tpu_torch/runtime/ngp_graph.py).
+(dregnerf_tpu_torch/runtime/ngp_trainer.py over runtime/step_graph.py).
 
-On the CPU the capture is replaced by `eager_capture` (the warm-up, then a
-"graph" whose replay runs the body into the static output and, as a real
-replay runs no kernel wrapper, puts the wrappers' launch counters back), so that the
-static-buffer path (the draws copied or drawn into their buffers, the grid
-read in place, the packed metrics and counters and their clone) runs here and
-is held bit for bit to the eager step. Off the card the optimizer is the
-eager step's own Adam. The `cuda` test holds replayed steps to eager steps
-on the card. This file imports no JAX, so that the card's test runs where
-JAX is not installed:
+On the CPU the capture is stood in for (tests/torch_graph_common.py: the
+warm-up, then a "graph" whose replay runs the body into the static output
+and, as a real replay runs no kernel wrapper, puts the wrappers' launch
+counters back), so that the static-buffer path (the draws copied or drawn
+into their buffers, the grid read in place, the packed metrics and counters
+and their clone) runs here and is held bit for bit to the eager step. Off
+the card the optimizer is the eager step's own Adam. The `cuda` test holds
+replayed steps to eager steps on the card. This file imports no JAX, so
+that the card's test runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_ngp_graph.py
 """
@@ -18,15 +18,13 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+from torch_graph_common import graph_on_cpu
+from torch_graph_common import tiny_ngp_trainer as trainer
 
-from dregnerf_tpu_torch.datasets import fixtures
 from dregnerf_tpu_torch.models import ngp as tngp
 from dregnerf_tpu_torch.ops import gather_rows, hash_encoding, scatter_add
-from dregnerf_tpu_torch.ops.hash_encoding import HashGridConfig
-from dregnerf_tpu_torch.ops.packed_grid import PackedGridConfig
-from dregnerf_tpu_torch.runtime import ngp_graph, profiling
 from dregnerf_tpu_torch.runtime import ngp_trainer as TT
-from dregnerf_tpu_torch.runtime.config import config_parser
+from dregnerf_tpu_torch.runtime import profiling, step_graph
 
 STEPS = 10  # occupancy updates at 0, bucket feedback at 0 and 8 (a new bucket at 8)
 ENCODERS = ["packed", "xor_hash"]
@@ -39,59 +37,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def trainer(out, encoder="packed", device="cpu", extra=()):
-    """A trainer at the CLI defaults on a 2-level grid: the packed one with
-    the bf16 table gradient and the run-length backward at level 0, or a
-    2-level xor-hash grid (`--encoder xor_hash`)."""
-    cfg = config_parser(["--expname", "tiny", "--out_dir", str(out), "--watchdog_s", "0",
-                         "--aabb=-1.0,-1.0,-1.0,1.0,1.0,1.0", "--sample_budget", "2048",
-                         "--max_march_steps", "64", "--grid_resolution", "16",
-                         "--init_num_rays", "32", "--max_num_rays", "256",
-                         "--encoder", encoder, *extra])
-    tr = TT.NGPTrainer(cfg, fixtures.make_scene_data("train", num_views=4, image_size=16),
-                       device=device)
-    if encoder == "packed":
-        grid = PackedGridConfig(n_levels=2, log2_table_size=10, base_resolution=4,
-                                per_level_scale=2.0, grad_accum="bf16",
-                                rle_step_u=tr.model_config.grid.rle_step_u)
-    else:
-        grid = HashGridConfig(n_levels=2, log2_table_size=10, base_resolution=4,
-                              per_level_scale=2.0)
-    tr.model_config = tngp.NGPConfig(grid=grid, compute_dtype=torch.bfloat16)
-    tr.init_params(torch.Generator(device=device).manual_seed(0))
-    tr.setup_optimizer()
-    return tr
-
-
-def eager_capture(body, state, pool):
-    """The capture's stand-in off the card: the warm-up, then a graph whose
-    replay runs the body into the static output and puts the launch
-    counters back (a replay runs no Python)."""
-    out = ngp_graph.warm_up(body, state, 1)
-
-    def replay():
-        before = ngp_graph.launches()
-        out.copy_(body())
-        for name, (fn, attr) in ngp_graph.launch_counters().items():
-            setattr(fn, attr, before[name])
-
-    return SimpleNamespace(replay=replay), out
-
-
-@contextlib.contextmanager
-def graph_on_cpu(mp, captures=None):
-    """Graphs engage on the CPU, each capture recorded in `captures`."""
-
-    def record(body, state, pool):
-        if captures is not None:
-            captures.append(len(state))
-        return eager_capture(body, state, pool)
-
-    mp.setattr(ngp_graph, "DEVICE_TYPES", ("cpu",))
-    mp.setattr(ngp_graph, "capture", record)
-    yield captures
 
 
 @contextlib.contextmanager
@@ -122,11 +67,11 @@ def state(tr):
 def counted_run(tr):
     """STEPS steps, their counts collected (as a profiler's store would sum
     them): their metrics, the counters and the kernels' host launches."""
-    before = ngp_graph.launches()
+    before = TT.launches()
     with profiling.collect({}) as counts:
         metrics = [tr.train_iteration(step) for step in range(STEPS)]
     counters = {name: sum(int(v) for v in values) for name, values in counts.items()}
-    return metrics, counters, {k: v - before[k] for k, v in ngp_graph.launches().items()}
+    return metrics, counters, {k: v - before[k] for k, v in TT.launches().items()}
 
 
 @pytest.fixture(scope="module", params=ENCODERS)
@@ -176,7 +121,7 @@ def test_counters_and_launches_counted_per_replay_equal_the_eager_steps(runs):
     assert got_counts.pop("ngp.graph_captures") == graphed.graph_captures
     assert got_counts.pop("ngp.graph_replays") == STEPS
     assert got_counts == want_counts
-    warm_ups = {k: sum(g.launched[k] for g in graphed._graph.graphs.values())
+    warm_ups = {k: sum(launched[k] for _, launched, _ in graphed._graph.buckets.values())
                 for k in want_launches}
     replayed = graphed.replayed_launches
     assert {k: got_launches[k] - warm_ups[k] + replayed.get(k, 0)
@@ -194,7 +139,7 @@ def test_each_bucket_is_captured_once(runs):
     assert len(buckets) > 1
     assert graphed.graph_captures == len(captures) == len(buckets)
     assert len(set(captures)) == 1 and captures[0] == len(state(graphed))
-    assert sorted(k[0][0][0] for k in graphed._graph.graphs) == buckets
+    assert sorted(k[0][0][0] for k in graphed._graph.buckets) == buckets
 
 
 def test_a_new_bucket_captures_and_an_old_one_replays(tmp_path, monkeypatch):
@@ -207,19 +152,7 @@ def test_a_new_bucket_captures_and_an_old_one_replays(tmp_path, monkeypatch):
                                         scene.width, "cpu")
             tr.train_iteration(step, draws)
     assert (tr.graph_captures, tr.graph_replays) == (2, 5)
-    assert len(tr._graph.graphs) == 2
-
-
-def test_two_steps_metrics_do_not_alias(tmp_path, monkeypatch):
-    with graph_on_cpu(monkeypatch):
-        tr = trainer(tmp_path)
-        first = tr.train_iteration(0)
-        kept = {k: v.clone() for k, v in first.items() if isinstance(v, torch.Tensor)}
-        second = tr.train_iteration(1)
-    assert not torch.equal(first["loss"], second["loss"])
-    for k, v in kept.items():
-        assert torch.equal(first[k], v), k
-        assert first[k].data_ptr() != second[k].data_ptr(), k
+    assert len(tr._graph.buckets) == 2
 
 
 def test_an_occupancy_update_between_replays_is_what_the_next_replay_reads(tmp_path,
@@ -256,33 +189,12 @@ def test_the_graph_engages_on_one_device_only(tmp_path, monkeypatch, case, engag
             monkeypatch.setattr(ngp_dp, "dp_train_step", dp_step)
             tr.mesh = SimpleNamespace(size=1)
         elif case == "off the card":
-            monkeypatch.setattr(ngp_graph, "DEVICE_TYPES", ("cuda",))
+            monkeypatch.setattr(step_graph, "DEVICE_TYPES", ("cuda",))
         tr.train_iteration(1)
-    assert ngp_graph.engages(tr) == engages
+    assert tr._graphed() == engages
     assert (tr.graph_captures, tr.graph_replays) == ((1, 1) if engages else (0, 0))
     assert (tr._graph is not None) == engages
     assert len(dp_calls) == (case == "mesh")
-
-
-def test_the_warm_up_puts_the_state_back_even_when_the_body_raises(tmp_path, monkeypatch):
-    with graph_on_cpu(monkeypatch):
-        tr = trainer(tmp_path)
-        tr.train_iteration(0)
-        before = [t.clone() for t in state(tr)]
-        real = tr.apply_gradients
-
-        def update_then_fail(step):
-            real(step)
-            raise RuntimeError("out of memory")
-
-        tr.apply_gradients = update_then_fail
-        with pytest.raises(RuntimeError):
-            tr.train_iteration(2, TT.draw_step_inputs(torch.Generator().manual_seed(2), 64,
-                                                      tr.scene.num_images, tr.scene.height,
-                                                      tr.scene.width, "cpu"))
-    assert int(tr.optimizer.state[tngp.parameters(tr.params)[0]]["step"]) == 1
-    for a, b in zip(state(tr), before):
-        assert torch.equal(a, b)
 
 
 def test_ngp_graph_share_reads_replays_per_traced_unit(tmp_path, monkeypatch):
@@ -364,7 +276,7 @@ def test_replayed_steps_match_eager_steps_on_the_card(tmp_path, monkeypatch, enc
         return losses, lrs, first
 
     got, got_lrs, got_first = run(graphed)
-    graphs = list(graphed._graph.graphs.values())
+    graphs = [graph for _, _, graph in graphed._graph.buckets.values()]
     assert (graphed.graph_captures, graphed.graph_replays) == (len(set(rays)), len(rays))
     assert graphed.optimizer.param_groups[0]["capturable"]
     assert len({g.graph.pool() for g in graphs}) == 1
@@ -372,11 +284,11 @@ def test_replayed_steps_match_eager_steps_on_the_card(tmp_path, monkeypatch, enc
     torch.cuda.set_sync_debug_mode("error")
     try:
         for g in graphs:
-            ngp_graph.warm_up(lambda: g.body(graphed), graphed._graph.state)
+            step_graph.warm_up(g.record, g.state)
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
-    monkeypatch.setattr(ngp_graph, "DEVICE_TYPES", ())
+    monkeypatch.setattr(step_graph, "DEVICE_TYPES", ())
     eager = trainer(tmp_path / "eager", encoder, dev, extra)
     want, want_lrs, want_first = run(eager)
     assert eager.graph_captures == 0

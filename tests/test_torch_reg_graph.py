@@ -1,31 +1,28 @@
 """The registration trainer's device-cached step as a CUDA graph
-(dregnerf_tpu_torch/runtime/reg_graph.py).
+(dregnerf_tpu_torch/runtime/reg_trainer.py over runtime/step_graph.py).
 
-On the CPU the capture is replaced by `eager_capture` (the warm-up, then a
-"graph" whose replay runs the body into the static output), so that the
-static-buffer path (the copy-in, the noise drawn into buffers, the packed
-metrics and their clone) runs here and is held bit for bit to the eager
-step. The `cuda` test holds replayed steps to eager steps on the card.
-This file imports no JAX, so that the card's test runs where JAX is not
-installed:
+On the CPU the capture is stood in for (tests/torch_graph_common.py: the
+warm-up, then a "graph" whose replay runs the body into the static
+output), so that the static-buffer path (the copy-in, the noise drawn into
+buffers, the packed metrics and their clone) runs here and is held bit for
+bit to the eager step. The `cuda` test holds replayed steps to eager steps
+on the card. This file imports no JAX, so that the card's test runs where
+JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_reg_graph.py
 """
 from types import SimpleNamespace
 
-import numpy as np
 import pytest
 import torch
+from torch_graph_common import TINY, graph_on_cpu
+from torch_graph_common import tiny_reg_trainer as trainer
 
-from dregnerf_tpu_torch.models.regtr import NeRFRegTr
-from dregnerf_tpu_torch.runtime import profiling, reg_graph, reg_optim
-from dregnerf_tpu_torch.runtime.config import config_parser
-from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer
+from dregnerf_tpu_torch.runtime import profiling, reg_optim, step_graph
+from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, _CachedStepGraph
 
-R = 16
-TINY = dict(backbone="resnet18", d_model=32, num_layers=1, num_heads=2, dim_feedforward=64,
-            max_input_points=256, num_tokens=64, max_points=50, num_downsample=2)
 LR = 1e-4  # the config's default
+COUNTERS = {"regtr.src_points", "regtr.tgt_points", "regtr.level"}  # what the step counts
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,95 +35,25 @@ def few_torch_threads():
     torch.set_num_threads(threads)
 
 
-def _block(rng):
-    """An R^3 grid of 300 random occupied voxels and its flat mask."""
-    grid = np.zeros((R, R, R, 7), np.float32)
-    ii = rng.integers(2, R - 2, size=(300, 3))
-    flat = ii[:, 0] * R * R + ii[:, 1] * R + ii[:, 2]
-    grid.reshape(-1, 7)[flat, :3] = (ii + 0.5) / R * 2.0 - 1.0
-    grid.reshape(-1, 7)[flat, 3:] = rng.uniform(size=(300, 4))
-    mask = np.zeros(R ** 3, bool)
-    mask[flat] = True
-    return grid, mask
-
-
-def _rigid(rng, std):
-    """A small random rigid transform [4, 4] f32."""
-    q = np.concatenate([[1.0], rng.normal(scale=std, size=3)])
-    w, x, y, z = q / np.linalg.norm(q)
-    out = np.eye(4)
-    out[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-                   [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-                   [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
-    out[:3, 3] = rng.normal(scale=std, size=3)
-    return out.astype(np.float32)
-
-
-class Pairs:
-    """Two blocks, as the trainer's dataset (it reads the grid resolution
-    and the jitter) and as a source of device-cached items (get_raw's
-    layout: cache keys and an `aug` dict)."""
-
-    jitter_scale, jitter_clip = 0.005, 0.05
-
-    def __init__(self, seed=0):
-        rng = np.random.default_rng(seed)
-        self.blocks = [_block(rng), _block(rng)]
-
-    def __len__(self):
-        return 1
-
-    def __getitem__(self, i):
-        return self.host_item(np.eye(4, dtype=np.float32))
-
-    def host_item(self, pose):
-        (g0, m0), (g1, m1) = self.blocks
-        return {"src_grid": g0, "src_mask": m0, "tgt_grid": g1, "tgt_mask": m1, "pose": pose}
-
-    def items(self, n, seed=1, jitter=True):
-        """n device-cached items with random poses and perturbations."""
-        rng = np.random.default_rng(seed)
-        out = []
-        for k in range(n):
-            p = _rigid(rng, 0.1)
-            item = {**self.host_item(_rigid(rng, 0.3)), "src_cache_key": "b0",
-                    "tgt_cache_key": "b1",
-                    "aug": {"p_src": p if k % 2 else np.eye(4, dtype=np.float32),
-                            "p_tgt": np.eye(4, dtype=np.float32) if k % 2 else p,
-                            "jitter": jitter}}
-            out.append(item)
-        return out
-
-
-def trainer(tmp_path, device="cpu", shape=TINY, bf16=False):
-    cfg = config_parser(["--position_embedding_dim", str(shape["d_model"]),
-                         "--num_downsample", str(shape["num_downsample"]),
-                         "--out_dir", str(tmp_path), "--expname", "reg", "--watchdog_s", "0",
-                         *([] if bf16 else ["--no_bf16"])])
-    ds = Pairs()
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    return RegTrainer(cfg, ds, ds, model=NeRFRegTr(**shape, dtype=dtype), device=device), ds
-
-
-def eager_capture(body, state):
-    """The capture's stand-in off the card: the warm-up, then a graph whose
-    replay runs the body into the static output."""
-    out = reg_graph.warm_up(body, state, 1)
-    return SimpleNamespace(replay=lambda: out.copy_(body())), out
-
-
 @pytest.fixture
-def graph_on_cpu(monkeypatch):
+def graph_on_cpu_captures(monkeypatch):
     """Graphs engage on the CPU, each capture recorded."""
-    captures = []
+    with graph_on_cpu(monkeypatch, []) as captures:
+        yield captures
 
-    def record(body, state):
-        captures.append(len(state))
-        return eager_capture(body, state)
 
-    monkeypatch.setattr(reg_graph, "DEVICE_TYPES", ("cpu",))
-    monkeypatch.setattr(reg_graph, "capture", record)
-    return captures
+@pytest.fixture(scope="module")
+def shared(tmp_path_factory):
+    """One tiny trainer and its pairs, for the tests that only need some
+    trainer (those that count captures reset its graph first)."""
+    return trainer(tmp_path_factory.mktemp("shared"))
+
+
+def _fresh(tr):
+    """`tr` with no graph and no captures or replays counted."""
+    tr._graph = None
+    tr.graph_captures = tr.graph_replays = 0
+    return tr
 
 
 def _state(tr):
@@ -155,10 +82,9 @@ def test_static_buffer_step_equals_the_eager_step_bit_for_bit(tmp_path, monkeypa
     want, want_counts = _profiled_steps(eager, items)
     assert eager.graph_captures == eager.graph_replays == 0
 
-    monkeypatch.setattr(reg_graph, "DEVICE_TYPES", ("cpu",))
-    monkeypatch.setattr(reg_graph, "capture", eager_capture)
-    graphed, _ = trainer(tmp_path / "graph", bf16=bf16)
-    got, got_counts = _profiled_steps(graphed, items)
+    with graph_on_cpu(monkeypatch):
+        graphed, _ = trainer(tmp_path / "graph", bf16=bf16)
+        got, got_counts = _profiled_steps(graphed, items)
     assert graphed.graph_captures == 1 and graphed.graph_replays == 3
 
     for g, w in zip(_state(graphed), _state(eager)):
@@ -170,20 +96,7 @@ def test_static_buffer_step_equals_the_eager_step_bit_for_bit(tmp_path, monkeypa
     assert torch.equal(graphed._aug_gen.get_state(), eager._aug_gen.get_state())
     assert got_counts.pop("regtr.graph_captures") == 1
     assert got_counts.pop("regtr.graph_replays") == 3
-    assert got_counts == want_counts and set(want_counts) == set(reg_graph.COUNTERS)
-
-
-def test_two_steps_metrics_do_not_alias(tmp_path, graph_on_cpu):
-    tr, ds = trainer(tmp_path)
-    first_item, second_item = ds.items(2)
-    first = tr.train_iteration(first_item)
-    kept = {k: v.clone() for k, v in first.items()}
-    second = tr.train_iteration(second_item)
-    assert not torch.equal(first["total"], second["total"])
-    for k, v in first.items():
-        assert torch.equal(v, kept[k]), k
-        assert v.data_ptr() != second[k].data_ptr(), k
-    assert graph_on_cpu == [5]  # one capture, of the optimizer's five tensors
+    assert got_counts == want_counts and set(want_counts) == COUNTERS
 
 
 @pytest.mark.parametrize("case,engages", [
@@ -194,31 +107,34 @@ def test_two_steps_metrics_do_not_alias(tmp_path, graph_on_cpu):
     ("batch 2", False),
     ("off the card", False),
 ])
-def test_the_graph_engages_only_on_the_cached_batch_1_grid_path(tmp_path, monkeypatch,
-                                                                graph_on_cpu, case, engages):
-    tr, ds = trainer(tmp_path)
+def test_the_graph_engages_only_on_the_cached_batch_1_grid_path(shared, monkeypatch,
+                                                                graph_on_cpu_captures, case,
+                                                                engages):
+    tr, ds = shared
+    _fresh(tr)
     item = ds.items(1)[0]
     if case == "host batch":
         item = {k: v for k, v in item.items() if k != "aug"}
     elif case == "exact visibility":
-        tr.visibility = "exact"
+        monkeypatch.setattr(tr, "visibility", "exact")
         # a cached item under exact labels takes the eager grid step
     elif case == "mesh":
-        tr.mesh = SimpleNamespace()
+        monkeypatch.setattr(tr, "mesh", SimpleNamespace())
     elif case == "batch 2":
-        tr.batch_size = 2
+        monkeypatch.setattr(tr, "batch_size", 2)
     elif case == "off the card":
-        monkeypatch.setattr(reg_graph, "DEVICE_TYPES", ("cuda",))
+        monkeypatch.setattr(step_graph, "DEVICE_TYPES", ("cuda",))
     metrics = tr.train_iteration(item)
     assert torch.isfinite(metrics["total"])
     assert (tr.graph_captures, tr.graph_replays) == ((1, 1) if engages else (0, 0))
-    assert len(graph_on_cpu) == tr.graph_captures
+    assert len(graph_on_cpu_captures) == tr.graph_captures
     assert (tr._graph is not None) == engages
 
 
-def test_the_graph_is_captured_anew_when_the_jitter_or_the_optimizer_changes(tmp_path,
-                                                                             graph_on_cpu):
-    tr, ds = trainer(tmp_path)
+def test_the_graph_is_captured_anew_when_the_jitter_or_the_optimizer_changes(
+        shared, graph_on_cpu_captures):
+    tr, ds = shared
+    _fresh(tr)
     on, off = ds.items(3), ds.items(1, seed=2, jitter=False)
     tr.train_iteration(on[0])
     tr.train_iteration(on[1])
@@ -242,27 +158,10 @@ def test_a_trainer_made_without_init_reads_the_graph_defaults():
     assert tr._graph is None
 
 
-def test_warm_up_puts_the_state_back_even_when_the_body_raises():
-    state = [torch.zeros(3), torch.zeros((), dtype=torch.int32)]
-
-    def body():
-        state[0].add_(1.0)
-        state[1].add_(1)
-        if int(state[1]) == 2:
-            raise RuntimeError("out of memory")
-        return state[0].clone()
-
-    assert torch.equal(reg_graph.warm_up(body, state, 1), torch.ones(3))
-    assert not state[0].any() and int(state[1]) == 0
-    with pytest.raises(RuntimeError):
-        reg_graph.warm_up(body, state, 3)
-    assert not state[0].any() and int(state[1]) == 0
-
-
-def test_graph_share_reads_replays_per_traced_step(graph_on_cpu, tmp_path):
+def test_graph_share_reads_replays_per_traced_step(graph_on_cpu_captures, shared):
     from benchmark.metrics import graph_share
 
-    tr, ds = trainer(tmp_path)
+    tr, ds = shared
     _, counters = _profiled_steps(tr, ds.items(2))
     profiling.reset()
     trace = SimpleNamespace()
@@ -313,14 +212,16 @@ def test_replayed_steps_match_eager_steps_on_the_card(tmp_path, monkeypatch, cud
     # the body, as captured, reads nothing on the host (the warm-up's run
     # puts the state back)
     item = items[0]
-    sides, matrices = graphed._cached_sides(item), reg_graph.matrices(item)
-    probe = reg_graph.StepGraph(graphed, sides, matrices, graphed._jitter(item["aug"]))
+    sides = graphed._cached_sides(item)
+    matrices = {"pose": torch.as_tensor(item["pose"]),
+                **{k: torch.as_tensor(item["aug"][k]) for k in ("p_src", "p_tgt")}}
+    probe = _CachedStepGraph(graphed, (), sides, matrices, graphed._jitter(item["aug"]))
     probe.fill(sides, matrices, torch.Generator(device=cuda_device).manual_seed(0))
     before = [t.clone() for t in _state(graphed)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        reg_graph.warm_up(lambda: probe.body(graphed), probe.state, 1)
+        step_graph.warm_up(probe.graph.record, probe.graph.state)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     for a, b in zip(_state(graphed), before):
@@ -330,7 +231,7 @@ def test_replayed_steps_match_eager_steps_on_the_card(tmp_path, monkeypatch, cud
     got = [graphed.train_iteration(it) for it in items]
     assert graphed.graph_captures == 1 and graphed.graph_replays == 3
 
-    monkeypatch.setattr(reg_graph, "DEVICE_TYPES", ())
+    monkeypatch.setattr(step_graph, "DEVICE_TYPES", ())
     eager, _ = trainer(tmp_path / "eager", cuda_device, shape, bf16=True)
     want = [eager.train_iteration(it) for it in items]
     assert eager.graph_captures == 0
