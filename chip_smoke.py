@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero:
      slot on random data, bit for bit on small integers; also its device
      time in the profiler and the wrapper's host time a call, and level 0's
      run-length call with its run count on the device) and
-     K2p (row gather, ops/gather_rows.py); and K6 (the xor-hash encoder's
+     K2p (row gather, ops/gather_rows.py); K2 (the packed encoder over its
+     vertex table, ops/packed_grid.py) at L4F8 on 2^18 ray-coherent points:
+     its forward, rows and unpack launches bit for bit against their plain
+     versions, their times and bounds, the whole encoder's forward and
+     backward against the pack path's, and a profiled forward and backward
+     without any of PACK_PATH_KERNELS; and K6 (the xor-hash encoder's
      forward and table-gradient backward, ops/hash_encoding.py) at
      HashGridConfig() on 2^18 ray-coherent points: the forward within
      K6_TOL["out"] of the plain version's max, the backward within
@@ -36,8 +41,9 @@ Phases, in order; any failure exits non-zero:
      most of a step),
      one validate() render; every step a replay of the trainer's CUDA
      graph (runtime/step_graph.py, one capture a ray bucket), each steady
-     step's (49-63, no occupancy update) graph recorded with 4 K1p and 4
-     K2p launches and the host launching neither outside a capture, the
+     step's (49-63, no occupancy update) graph recorded with 4 K1p launches
+     and one of each of K2's, the host launching none outside a capture, no
+     K2p or K1, no roll or K2p in the profiled steps, the
      run-length backward counted once a steady step, its overflow
      fallback counted; in the profiled steps the profiler counts on the
      device each port kernel as often as the replayed graphs' recordings
@@ -53,9 +59,9 @@ Phases, in order; any failure exits non-zero:
      here), each in its own world frame from world_frame_transforms.json
      (rigid, the cameras mapped within 1e-6, the spheres inside the aabb);
      both blocks trained to MB_STEPS through train_ngp_nerf.train_blocks
-     at SHAPE_FLAGS (K1p and K2p 4 launches in every step without an
-     occupancy update, K2p held bit for bit against index_select on each
-     level's call of one step of each block, that step run eagerly),
+     at SHAPE_FLAGS (K1p 4 and K2 1/1/1 launches in every step without an
+     occupancy update, K2's forward held bit for bit against its plain
+     version in one step of each block, that step run eagerly),
      evaluated and extracted
      through eval_ngp_nerf.eval_blocks; the frame check (at least
      MB_FRAME_SHARE of block 0's surface voxels near block 1's under
@@ -69,18 +75,18 @@ Phases, in order; any failure exits non-zero:
      0.5 on at least NV_OPACITY_SHARE_MIN of the pixels), then
      RegEvaluator.evaluate() with --render_videos: every src, tgt and pair
      frame and depth of the gt, aligned and unaligned orbits on disk at
-     its shape, the mp4 exactly when ffmpeg is on PATH, K2p launches
-     counted, render_pair_views timed;
+     its shape, the mp4 exactly when ffmpeg is on PATH, K2's forward
+     launches counted, render_pair_views timed;
   9. the `compact` and `quota` training marchers (`marchers`): at 2^15 rays
      x 1024 steps and a 2^18 budget on a trained block's grid, the card
      against the CPU (equal samples, t_start within 1e-6), each one's
      cumsum timed; MARCH_STEPS full-width steps under each and
-     under `capped` (finite losses, K1p and K2p 4 launches a step);
+     under `capped` (finite losses, K1p 4 and K2 1/1/1 launches a step);
   9b. the fleet (`fleet`): the fixture's two k-means blocks trained
      together on the card through train_ngp_nerf.train_fleet (--multi_blocks
      --fleet) at SHAPE_FLAGS, FLEET_STEPS fleet steps at the CLI defaults:
-     K1p and K2p 4 launches in every block-step, K2p bit for bit against
-     index_select on each level's call of step 1 of block 0, each block's
+     K1p 4 and K2 1/1/1 launches in every block-step, K2's forward bit for
+     bit against its plain version at step 1 of block 0, each block's
      first step held against one NGPTrainer step from the same state on the
      same draws (loss 1e-3 relative, the table gradient within
      GRAD_NORM_TOL of its norm, MLP gradients within GRAD_NORM_TOL of their
@@ -89,14 +95,16 @@ Phases, in order; any failure exits non-zero:
      PSNR and checkpoint read back bit for bit;
  9c. the stage-3 fleet (`stage3 fleet`): the twin of
      scripts/experiments/stage3_fleet.py at its defaults (L8F4 blocks: K1p
-     and K2p on rows 32 wide over 8 levels, a width no other phase runs)
+     on rows 32 wide over 8 levels and K2 at 4 features, a width no other
+     phase runs)
      on two scenes, scene_00 (spheres) to train on and scene_01 (boxes)
      held out, 36 views of 128 px: the scenes' shape lists, the box
      scene's RGBA byte for byte _trace's; its stage1_and_2 (each block to
-     S3_NGP_STEPS, every block with surface voxels; K1p and K2p 8 launches
-     in every step without an occupancy update, each level's call of
-     S3_CHECK_STEP, run eagerly, held against its plain version: K2p bit
-     for bit, K1p within its slot bound), the regdata tree, its stage3 (S3_REG_STEPS
+     S3_NGP_STEPS, every block with surface voxels; K1p 8 and K2 1/1/1
+     launches in every step without an occupancy update, the calls of
+     S3_CHECK_STEP, run eagerly, held against their plain versions: K2's
+     forward bit for bit, each level's K1p within its slot bound), the
+     regdata tree, its stage3 (S3_REG_STEPS
      steps, finite losses) and evaluate (scene_01 in both block orders,
      RegTr with and without the ICP polish; the FGR/RANSAC baseline on the
      first order only, S3_BASELINE_DRAWS), the metrics files written; the
@@ -135,11 +143,11 @@ Phases, in order; any failure exits non-zero:
      save_checkpoint, load_checkpoint and RegEvaluator on the
      trained weights; one f32 step (TF32 off) from the trainer's state, card
      against CPU on the R = 32 crop, within REG_STEP_TOL; two steps with --visibility exact
-     through the phase-6 block's NeRF (K2p must launch; the first call on
-     each level table of both fields held bit for bit against
-     index_select on the path's own inputs, and timed alone against its
-     bytes bound from its distinct rows), their labels against the
-     voxel-mask labels and K2p in the profiler;
+     through the phase-6 block's NeRF (K2's forward must launch, K2p not;
+     its first call on the table of each field held bit for bit against
+     its plain version on the path's own inputs, and timed alone against
+     its bytes bound), their labels against the voxel-mask labels and K2
+     in the profiler;
  12b. the mesh (`mesh`), parallel/ at world size 1 under NCCL (a file://
      store in the temporary directory): the stage-1 DP step at full width
      against step_loss on the same draws (samples equal, loss within
@@ -158,8 +166,9 @@ Phases, in order; any failure exits non-zero:
      against the mean-of-shards one computed in this process on the
      ranks' draws and pairs at the same parameters, the parameters Adam's
      steps on the ranks' gradients bit for bit, and the two ranks equal
-     bit for bit (checksums after an all_gather). K1p/K2p launches are
-     counted around each DP step and the surface pass (4/4 a DP step);
+     bit for bit (checksums after an all_gather). K1p/K2 launches are
+     counted around each DP step and the surface pass (4/1/1/1 a DP step,
+     one K2 forward a density query);
  13. training under grad_accum "pallas" without the run-length backward
      (64 steps): K1 must launch 4 times a step; then K1p's device time at
      each case of phase 3, the kernel alone in torch.profiler;
@@ -175,7 +184,7 @@ Phases, in order; any failure exits non-zero:
      at full width, built by the trainer from `--encoder xor_hash`,
      trained to HASH_STEPS, profiled, saved ("encoder": "xor_hash"),
      evaluated and extracted through Evaluator, with its surface rays/s;
-     K1, K1p and K2p launch in none of it, K6 forward and backward in all
+     K1, K1p, K2p and K2 launch in none of it, K6 forward and backward in all
      of its training; a `fields` JSON line;
  15. a JSON line of every kernel with its host launches on its path (the
      wrappers' counters: a CUDA graph's replay runs none), apart from them
@@ -208,12 +217,18 @@ PROFILE_TOP = 15
 PROFILE_PAD_S = 0.1  # host seconds around a profiled window's launches (device_ms)
 # the __global__ functions of dregnerf_tpu_torch/csrc
 PORT_KERNELS = ("scatter_add_rows_f32x4", "scatter_add_rows_bf16x8", "gather_rows_f32x4",
-                "hash_grid_fwd", "hash_grid_bwd")
+                "hash_grid_fwd", "hash_grid_bwd", "packed_grid_fwd", "packed_grid_rows",
+                "packed_grid_unpack")
 # K6 against its plain version, relative to the plain version's max |value|:
 # the forward's corner rows are equal (8-corner sums in another order), the
 # backward's atomics sum in a varying order
 K6_TOL = {"out": 1e-6, "grad": 1e-5}
 K6_RAYS, K6_RUN = 1 << 14, 16  # rays of K6's points, consecutive samples a ray
+# device operations of the packed encoder's forward and backward on the
+# card that would mean the packed table or its products were back: its
+# rolls, the cat of corner rows, K2p, the einsum's batched GEMV and GEMM
+PACK_PATH_KERNELS = ("roll_cuda_kernel", "CatArrayBatchedCopy", "gather_rows_f32x4", "gemv",
+                     "gemm")
 PALLAS_STEPS = 64
 EXTRACT_STEPS = 1024  # the default-trained block is extracted at this step
 REG_WARMUP, REG_TIMED = 2, 10  # registration forwards before and under the clock
@@ -277,13 +292,13 @@ ICP_INIT_ERROR = (8.0, (1.0, -1.0, 0.5), (0.03, 0.02, -0.03))
 # wrong map). Three runs read 0.5465-0.6007 and 0.1018-0.1162 at 3 widths.
 FIXTURE36_K2 = [0] * 8 + [1] * 18 + [0] * 10
 MB_STEPS = EXTRACT_STEPS
-MB_CHECK_STEP = 1  # the step whose K2p calls are held against index_select (no occupancy update)
+MB_CHECK_STEP = 1  # the step whose K2 forward is held against its plain version (no occupancy update)
 MB_LEVELS = 4
 MB_FRAME_RADIUS = 3.0
 MB_FRAME_SHARE = 0.3
 MB_SWAPPED_SHARE = 0.2
 MARCH_STEPS = 8  # full-width steps under each training marcher
-FLEET_STEPS = 128  # fleet steps of the two-block fleet (every block-step K1p/K2p 4/4)
+FLEET_STEPS = 128  # fleet steps of the two-block fleet (every block-step K1p/K2 4/1/1/1)
 # two full-width steps' gradients on the card from the same state on the
 # same draws (_grads_agree): the table gradient within GRAD_NORM_TOL of the
 # reference's norm, each MLP leaf within GRAD_NORM_TOL of its max (the
@@ -331,7 +346,7 @@ NV_PSNR_MIN = 35.0  # dB, card against CPU on one frame of a trained block
 NV_OPACITY_SHARE_MIN = 0.05  # of that frame's pixels with opacity over 0.5
 NV_TAGS = ("gt", "aligned", "unaligned")
 NV_ORBIT = 12  # cameras of the evaluator's orbit
-NV_K2P_PER_RENDER = 8  # 2 chunks of 8192 rays (10^4 padded) x 4 encoder levels
+NV_K2_PER_RENDER = 2  # 2 chunks of 8192 rays (10^4 padded), one K2 forward each
 # the stage-3 fleet phase: the twin of scripts/experiments/stage3_fleet.py at
 # its defaults (L8F4: 8 levels of packed rows 32 wide) on two scenes, scene_00
 # (spheres) to train on and scene_01 (boxes) held out, at the fixture's
@@ -342,7 +357,7 @@ S3_NGP_STEPS = 512  # 512 and 1024 tried: every block extracts surface voxels at
 S3_REG_STEPS = 8
 S3_LEVELS = 8
 S3_WIDTH = 32
-S3_CHECK_STEP = 1  # the step whose K1p and K2p calls are held against their plain versions
+S3_CHECK_STEP = 1  # the step whose K1p and K2 calls are held against their plain versions
 S3_BASELINE_DRAWS = 1  # block orders the host-side baseline also registers (the twin's: 2)
 
 
@@ -731,6 +746,77 @@ def k6_phase(torch, dev) -> dict:
     return {"forward": fwd, "backward": bwd, "rows_equal": rows_equal}
 
 
+def k2_phase(torch, dev) -> dict:
+    """K2 at the main path's shapes (L4F8 with the CLI defaults'
+    accumulators: bf16, the run-length backward at level 0) on k6_points:
+    each launch against its plain version, bit for bit (the same f32
+    operations in the same order); each one's time, alone in the profiler
+    and against its bound in bytes (forward N (12 + 4LF): positions read,
+    the encoding written, each corner row unseen; rows N (12 + 4LF + 4L +
+    32LF); unpack 36F a table row: G read, dV written), and its plain
+    version's; the whole encoder's forward and backward against the pack
+    path's (pack_table, K2p, the einsum, the same accumulators); and one
+    profiled forward and backward, in which no kernel of PACK_PATH_KERNELS
+    may run."""
+    from dregnerf_tpu_torch.ops import packed_grid as P
+
+    cfg = P.PackedGridConfig(grad_accum="bf16", rle_step_u=math.sqrt(3) / 1024)
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = k6_points(torch, g)
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    table = torch.rand(cfg.total_rows, F, generator=g, device=dev) * 2 - 1
+    dout = torch.randn(n, cfg.out_dim, generator=g, device=dev)
+    grads = [torch.randn(int(t), 8 * F, generator=g, device=dev) for t in cfg.level_table_sizes()]
+    k2 = P.vertex_encode
+    before = (k2.launches, k2.rows_launches, k2.unpack_launches)
+    out = P._k2_forward(table, x, cfg)
+    slots, rows = P._k2_rows(x, dout, cfg)
+    dv = P._k2_unpack(grads, cfg, x.device)
+    torch.cuda.synchronize()
+    after = (k2.launches, k2.rows_launches, k2.unpack_launches)
+    check(after == tuple(b + 1 for b in before), f"K2 launches {after} after {before}")
+    want_slots, want_rows = P.k2_rows_plain(x, dout, cfg)
+    equal = {"forward": torch.equal(out, P.k2_forward_plain(table, x, cfg)),
+             "rows": torch.equal(slots, want_slots) and torch.equal(rows, want_rows),
+             "unpack": torch.equal(dv, P.k2_unpack_plain(grads, cfg))}
+    check(all(equal.values()), f"K2 against its plain versions (equal): {equal}")
+    del out, slots, rows, dv, want_slots, want_rows
+    launches = {
+        "forward": (lambda: P._k2_forward(table, x, cfg), lambda: P.k2_forward_plain(table, x, cfg),
+                    "void packed_grid_fwd<", n * (12 + 4 * L * F)),
+        "rows": (lambda: P._k2_rows(x, dout, cfg), lambda: P.k2_rows_plain(x, dout, cfg),
+                 "void packed_grid_rows<", n * (12 + 4 * L * F + 4 * L + 32 * L * F)),
+        "unpack": (lambda: P._k2_unpack(grads, cfg, x.device),
+                   lambda: P.k2_unpack_plain(grads, cfg), "void packed_grid_unpack<",
+                   cfg.total_rows * 36 * F)}
+    results = {}
+    for name, (kernel, plain, key, nbytes) in launches.items():
+        r = results[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+                             "device_ms": device_ms(torch, kernel, key),
+                             "bound_ms": bound_ms(nbytes)}
+        print(f"K2 {name} at {n} points, L{L}F{F}: kernel {r['ms']:.4f} ms (alone "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"(bytes), equal to its plain version", flush=True)
+    tv = table.clone().requires_grad_(True)
+
+    def k2_encoder():
+        tv.grad = None
+        P.vertex_encode(tv, x, cfg).backward(dout)
+
+    def pack_encoder():
+        tv.grad = None
+        P.packed_encode(P.pack_table(tv, cfg), x, cfg).backward(dout)
+
+    encoder = {"ms": cuda_ms(k2_encoder), "pack_path_ms": cuda_ms(pack_encoder)}
+    _, kernels, _, _ = profiled(torch, k2_encoder, 1, "K2 encoder forward and backward", "call")
+    packing = [e.key[:60] for e in kernels if any(k in e.key for k in PACK_PATH_KERNELS)]
+    check(not packing, f"the K2 encoder ran the pack path's kernels: {packing}")
+    print(f"K2 encoder forward and backward (bf16, RLE level 0): {encoder['ms']:.4f} ms, the pack "
+          f"path {encoder['pack_path_ms']:.4f} ms; its {len(kernels)} kinds of device operation "
+          f"hold none of {PACK_PATH_KERNELS}", flush=True)
+    return dict(results, encoder=encoder, equal=equal)
+
+
 def _record_scatters(packed_grid, seen: dict):
     """Wrap packed_grid.level_backward so that each level's scatter records
     (slot, g, table_rows) under the device's type; returns the original."""
@@ -760,13 +846,12 @@ def reference_phase(torch, dev, defaults: bool) -> None:
     slot hit k times by rows g: (k + 1) 2^-7 sum|g| (k roundings of the
     adds and of the addends, whose cotangents may round to neighbouring
     bf16 values), carried to the vertex table through pack_table; MLP
-    gradients 1e-2 of their max (bf16 operands)."""
+    gradients 1e-2 of their max (bf16 operands). The card's table gradient
+    comes through K2 (one launch of each of its three), with no K2p."""
     from dregnerf_tpu_torch.datasets.fixtures import make_scene_data
     from dregnerf_tpu_torch.models import ngp
     from dregnerf_tpu_torch.ops import occupancy
     from dregnerf_tpu_torch.ops import packed_grid
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
     from dregnerf_tpu_torch.render.renderer import RenderConfig
     from dregnerf_tpu_torch.runtime.ngp_trainer import draw_step_inputs, step_loss
 
@@ -797,23 +882,21 @@ def reference_phase(torch, dev, defaults: bool) -> None:
                       for k, v in params_cpu.items()}
             grid = occupancy.OccupancyGrid(torch.zeros(16**3, device=d), binary.to(d))
             draws = type(draws_cpu)(*(t.to(d) for t in draws_cpu))
-            launches = (scatter_add.launches, scatter_add_bf16.launches, gather_rows.launches)
+            before = _kernel_launches()
             loss, m = step_loss(params, cfg, rcfg, grid,
                                 torch.tensor([-1.0, -1, -1, 1, 1, 1], device=d),
                                 torch.as_tensor(scene.images, device=d),
                                 torch.as_tensor(scene.camtoworlds, device=d),
                                 torch.as_tensor(scene.K, device=d), draws, True, True)
             loss.backward()
-            ran = [now - before for now, before in zip(
-                (scatter_add.launches, scatter_add_bf16.launches, gather_rows.launches),
-                launches)]
+            ran = [_kernel_launches()[k] - before[k] for k in PACKED_KERNELS]
             out[str(d)] = (loss.item(), m["psnr"].item(), int(m["n_samples"]),
                            [p.grad.cpu() for p in ngp.parameters(params)], ran)
     finally:
         packed_grid.level_backward = real
     (l0, p0, n0, g0, _), (l1, p1, n1, g1, ran) = out["cpu"], out[str(dev)]
-    want_ran = [0, 2, 2] if defaults else [2, 0, 2]
-    check(ran == want_ran, f"reference: launches (K1, K1p, K2p) {ran}, expected {want_ran}")
+    want_ran = [0, 2, 0, 1, 1, 1] if defaults else [2, 0, 0, 1, 1, 1]
+    check(ran == want_ran, f"reference: launches {PACKED_KERNELS} {ran}, expected {want_ran}")
     check(n0 == n1, f"reference: n_samples cpu {n0} vs cuda {n1}")
     rel = 1e-3 if defaults else 1e-4
     check(math.isclose(l0, l1, rel_tol=rel), f"reference: loss cpu {l0} vs cuda {l1}")
@@ -832,7 +915,7 @@ def reference_phase(torch, dev, defaults: bool) -> None:
     label = "CLI defaults (bf16, RLE)" if defaults else "pallas f32"
     extra = f", table err / bf16 bound {table_ratio:.4f}" if defaults else ""
     print(f"reference step [{label}]: loss cpu {l0:.6f} cuda {l1:.6f}, n_samples {n0}, "
-          f"launches K1/K1p/K2p {ran}, max grad err {worst:.2e} of max |g|{extra}", flush=True)
+          f"launches K1/K1p/K2p/K2 {ran}, max grad err {worst:.2e} of max |g|{extra}", flush=True)
 
 
 def profiled(torch, fn, calls: int, label: str, unit: str):
@@ -892,6 +975,16 @@ def profile_phase(torch, trainer, first_step: int) -> tuple[float, float]:
         if any(name in e.key for name in PORT_KERNELS):
             print(f"  port kernel {e.key[:40]}: {e.self_device_time_total / len(steps) / 1e3:.4f} "
                   f"ms/step device, x{e.count // len(steps)} a step", flush=True)
+    if hasattr(trainer.model_config, "grid") and hasattr(trainer.model_config.grid, "grad_accum"):
+        # the packed grid through K2: no packed table is built (no roll) and
+        # K2p gathers nothing; the GEMMs and GEMVs left are the step's others
+        packing = [e.key[:60] for e in kernels
+                   if "roll_cuda_kernel" in e.key or "gather_rows_f32x4" in e.key]
+        check(not packing, f"profiled steps: the packed table's kernels ran: {packing}")
+        products = {e.key[:60]: round(e.self_device_time_total / len(steps) / 1e3, 4)
+                    for e in kernels if "gemv" in e.key or "xmma" in e.key}
+        print(f"  no roll and no K2p in the profiled steps; GEMV and xmma GEMM kernels "
+              f"(ms/step): {products}", flush=True)
     # the replays' launches, counted on the device, against what the
     # replayed graphs' recordings launched; the host launches none
     host, replayed, captures, replays = _ngp_launches(trainer, before, tuple(PORT_KERNEL_OF))
@@ -906,13 +999,22 @@ def profile_phase(torch, trainer, first_step: int) -> tuple[float, float]:
     return busy_ms, wall_ms
 
 
-# K1p and K2p's launch counters (runtime/ngp_trainer.py::launch_counters)
-K1P_K2P = ("scatter_add_bf16", "gather_rows")
+# K1p's and K2's launch counters (runtime/ngp_trainer.py::launch_counters)
+K1P_K2 = ("scatter_add_bf16", "packed_grid_fwd", "packed_grid_rows", "packed_grid_unpack")
 # each launch counter's kernel, as the profiler names it
 PORT_KERNEL_OF = {"scatter_add": "scatter_add_rows_f32x4",
                   "scatter_add_bf16": "scatter_add_rows_bf16x8",
                   "gather_rows": "gather_rows_f32x4", "hash_grid_fwd": "hash_grid_fwd",
-                  "hash_grid_bwd": "hash_grid_bwd"}
+                  "hash_grid_bwd": "hash_grid_bwd", "packed_grid_fwd": "packed_grid_fwd",
+                  "packed_grid_rows": "packed_grid_rows",
+                  "packed_grid_unpack": "packed_grid_unpack"}
+
+
+def k1p_k2_step(levels: int) -> tuple:
+    """The K1P_K2 launches of a training step at `levels` packed levels
+    under grad_accum bf16: K1p once a level (the run-length level's through
+    its chosen rows), K2's forward, rows and unpack once each."""
+    return (levels, 1, 1, 1)
 
 
 def _ngp_marks(trainer) -> tuple:
@@ -924,7 +1026,7 @@ def _ngp_marks(trainer) -> tuple:
             trainer.graph_replays)
 
 
-def _ngp_launches(trainer, before: tuple, kernels=K1P_K2P) -> tuple:
+def _ngp_launches(trainer, before: tuple, kernels=K1P_K2) -> tuple:
     """(host, replayed, captures, replays) since the marks `before`: `host`
     the launches of each of `kernels` that its wrapper counted where it
     launched (a capture's warm-up and its recording launch one step's each,
@@ -937,14 +1039,14 @@ def _ngp_launches(trainer, before: tuple, kernels=K1P_K2P) -> tuple:
             captures - before[2], replays - before[3])
 
 
-def _ngp_step_ok(counts: tuple, n: int) -> bool:
+def _ngp_step_ok(counts: tuple, want: tuple) -> bool:
     """Whether a step without an occupancy update (its `_ngp_launches`)
-    launched each kernel `n` times: as a replay of a graph whose recording
-    held n, the host launching none but at a capture (n for its warm-up, n
-    for its recording), or eagerly, the host launching n."""
+    launched each kernel as often as `want` says, n: as a replay of a graph
+    whose recording held n, the host launching none but at a capture (n for
+    its warm-up, n for its recording), or eagerly, the host launching n."""
     host, replayed, captures, replays = counts
-    return (replays in (0, 1) and all(r == n * replays for r in replayed)
-            and all(h == n * (2 * captures + 1 - replays) for h in host))
+    return (replays in (0, 1) and all(r == n * replays for r, n in zip(replayed, want))
+            and all(h == n * (2 * captures + 1 - replays) for h, n in zip(host, want)))
 
 
 def _scenes():
@@ -956,12 +1058,10 @@ def _scenes():
 
 def train_default_phase(torch, out_dir: str):
     """The CLI defaults at full width; returns (trainer, config, the host
-    launches of K1, K1p and K2p over the TRAIN_STEPS steps, and those of K1p
-    and K2p that the replays ran, derived)."""
+    launches of K1, K1p, K2p and K2 over the TRAIN_STEPS steps, and those of
+    K1p and K2 that the replays ran, derived)."""
     from dregnerf_tpu_torch.ops import packed_grid
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
-    from dregnerf_tpu_torch.runtime import profiling
+    from dregnerf_tpu_torch.runtime import ngp_trainer, profiling
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
@@ -986,7 +1086,7 @@ def train_default_phase(torch, out_dir: str):
     # counts them after each replay
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    scatter_add.launches = scatter_add_bf16.launches = gather_rows.launches = 0
+    _reset_kernel_launches()
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
     metrics, per_step_launches, steady_rle = [], [], {}
     start = _ngp_marks(trainer)
@@ -1003,19 +1103,20 @@ def train_default_phase(torch, out_dir: str):
                 steady_rle.setdefault(name, []).extend(counts.get(name, []))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"scatter_add": scatter_add.launches, "scatter_add_bf16": scatter_add_bf16.launches,
-                "gather_rows": gather_rows.launches}
-    replayed = dict(zip(K1P_K2P, _ngp_launches(trainer, start)[1]))
+    launches = ngp_trainer.launches()
+    replayed = dict(zip(K1P_K2, _ngp_launches(trainer, start)[1]))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     losses = [float(m["loss"]) for m in metrics]
     psnrs = [float(m["psnr"]) for m in metrics]
     n_samples = [int(m["n_samples"]) for m in metrics]
     step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(TRAIN_STEPS)]
-    bad = [(s, per_step_launches[s]) for s in STEADY if not _ngp_step_ok(per_step_launches[s], 4)]
-    check(not bad, f"steady steps (step, (host, replayed, captures, replays)) whose K1p/K2p "
-          f"launches are not 4/4: {bad}")
-    check(launches["scatter_add"] == 0, "K1 ran on the default path")
+    bad = [(s, per_step_launches[s]) for s in STEADY
+           if not _ngp_step_ok(per_step_launches[s], k1p_k2_step(4))]
+    check(not bad, f"steady steps (step, (host, replayed, captures, replays)) whose K1p/K2 "
+          f"launches are not 4/1/1/1: {bad}")
+    check(launches["scatter_add"] == 0 and launches["gather_rows"] == 0,
+          f"K1 or K2p ran on the default path: {launches}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
     check(last < first, f"loss did not fall: first 8 {first}, last 8 {last}")
@@ -1031,7 +1132,7 @@ def train_default_phase(torch, out_dir: str):
           f"{steady_ms:.2f} ms/step device, {sps:.1f} samples/s; ray bucket "
           f"{trainer.num_rays} (ran {metrics[-1]['num_rays']}); loss first 8 {first:.5f} last "
           f"8 {last:.5f}; train psnr {psnrs[0]:.3f} -> {psnrs[-1]:.3f}; host launches {launches}, "
-          f"replayed (derived) {replayed}, K1p/K2p 4/4 in every steady step (its graph's "
+          f"replayed (derived) {replayed}, K1p/K2 4/1/1/1 in every steady step (its graph's "
           f"recording); level-0 overflow fallback in {overflow} of "
           f"{rle_calls} steady steps; {trainer.graph_captures} CUDA graph captures, "
           f"{trainer.graph_replays} replays; peak device memory {peak_gib:.2f} GiB", flush=True)
@@ -1057,7 +1158,6 @@ def extract_phase(torch, trainer, cfg) -> None:
 
     from dregnerf_tpu_torch.eval_ngp_nerf import Evaluator
     from dregnerf_tpu_torch.extract import sample_grid as sg
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
 
     first = TRAIN_STEPS + 1 + PROFILE_STEPS
     t0 = time.perf_counter()
@@ -1067,7 +1167,7 @@ def extract_phase(torch, trainer, cfg) -> None:
           f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}, val psnr "
           f"{trainer.validate(EXTRACT_STEPS):.3f}", flush=True)
     trainer.save_checkpoint(EXTRACT_STEPS)
-    gather_rows.launches = 0
+    _reset_kernel_launches()
     t0 = time.perf_counter()
     ev = Evaluator(cfg, trainer.output_dir, trainer.val_scene)
     check(ev.device.type == "cuda", f"evaluator on {ev.device}")
@@ -1076,15 +1176,16 @@ def extract_phase(torch, trainer, cfg) -> None:
     check(math.isfinite(result["psnr"]), f"eval psnr {result['psnr']}")
     print(f"evaluate: {result['num_views']} test views, psnr {result['psnr']:.3f}, ssim "
           f"{result['ssim']:.4f}, lpips_rand_alex {result['lpips_rand_alex']:.5f}, lpips "
-          f"{result['lpips']}, {time.perf_counter() - t0:.3f} s, K2p launches "
-          f"{gather_rows.launches}", flush=True)
+          f"{result['lpips']}, {time.perf_counter() - t0:.3f} s, launches "
+          f"{_kernel_launches()}", flush=True)
+    eval_launches = _kernel_launches()
 
-    gather_rows.launches = 0
+    _reset_kernel_launches()
     t1 = time.perf_counter()
     extracted = ev.sample_points()  # extract_voxel_features, then save_voxel_artifacts
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = gather_rows.launches
+    launches = _kernel_launches()
     points, cams = extracted["points"], np.asarray(ev.meta["camera_poses"], np.float32)
     # the surface scores of the same points, in a second surface pass of
     # the same settings: its rate, and the scores' spread
@@ -1100,14 +1201,16 @@ def extract_phase(torch, trainer, cfg) -> None:
     n_density = int(extracted["density_mask"].sum())
     rays = len(points) * len(cams)
     print(f"extract: Evaluator.sample_points() {t2 - t1:.3f} s over {len(points)} occupied "
-          f"voxels and {len(cams)} cameras, K2p launches {launches}; {n_surface} surface "
+          f"voxels and {len(cams)} cameras, launches {launches}; {n_surface} surface "
           f"voxels, {n_density} density voxels; wrote "
           f"{[os.path.basename(p) for p in extracted['written']]}; surface pass alone "
           f"{rays} rays in {t3 - t2:.3f} s ({rays / (t3 - t2):.1f} rays/s, 64 samples a ray, "
           f"chunk {min(cfg.test_chunk_size, 8192)} clamped to {(1 << 17) // 64} rays), score "
           f"max {scores.max():.4f}, 99th percentile {np.percentile(scores, 99):.4f}",
           flush=True)
-    check(launches > 0, "extraction launched no K2p")
+    for name, counts in (("evaluation", eval_launches), ("extraction", launches)):
+        check(counts["packed_grid_fwd"] > 0 and counts["gather_rows"] == 0,
+              f"{name} launched no K2 forward, or K2p: {counts}")
     check(n_surface > 0 and n_density > 0, "empty voxel masks")
     grid = torch.load(os.path.join(trainer.output_dir, "voxel_grid.pt"))
     res = cfg.grid_resolution
@@ -1117,10 +1220,10 @@ def extract_phase(torch, trainer, cfg) -> None:
 
 def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks=None):
     """Wrap NGPTrainer.train_iteration for the multi-block and stage-3
-    fleet phases: each step's (step, its K1p and K2p `_ngp_launches`, CUDA
+    fleet phases: each step's (step, its K1p and K2 `_ngp_launches`, CUDA
     events, loss) per trainer, and, in step `record_step` of each trainer,
-    each level's K2p call (its first `levels` gathers) held bit for bit
-    against index_select on the call's own inputs. With a dict
+    its K2 forward (the step's first) held bit for bit against K2's plain
+    forward on the call's own inputs. With a dict
     `k1p_checks`, each level's K1p call of that step (its first `levels`)
     is held against the plain serial bf16 scatter on its own inputs
     (k1p_slot_error) and recorded there by trainer as (table shape, rows,
@@ -1129,21 +1232,20 @@ def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks
     Python, so no wrapper would see their calls. Returns (steps by
     trainer, checks by trainer, restore)."""
     from dregnerf_tpu_torch.ops import packed_grid, rle
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
     from dregnerf_tpu_torch.ops.scatter_add import _chosen, scatter_add_bf16, scatter_add_bf16_plain
     from dregnerf_tpu_torch.runtime import step_graph
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
-    real_step, real_gather = NGPTrainer.train_iteration, packed_grid.gather_rows
+    real_step, real_forward = NGPTrainer.train_iteration, packed_grid._k2_forward
     real_scatter = scatter_add_bf16
     steps, checks, current = {}, {}, [None]
 
-    def gather(table, idx):
-        out = real_gather(table, idx)
+    def forward(table, x, config):
+        out = real_forward(table, x, config)
         calls = checks.get(current[0])
-        if calls is not None and len(calls) < levels:
-            calls.append((tuple(table.shape), int(idx.numel()),
-                          torch.equal(out, gather_rows_plain(table, idx))))
+        if calls is not None and not calls:
+            calls.append((tuple(table.shape), int(x.shape[0]),
+                          torch.equal(out, packed_grid.k2_forward_plain(table, x, config))))
         return out
 
     def scatter(idx, src, table_rows, alt=None, count=None):
@@ -1181,22 +1283,22 @@ def _block_recorder(torch, record_step: int, levels: int = MB_LEVELS, k1p_checks
 
     def restore():
         NGPTrainer.train_iteration = real_step
-        packed_grid.gather_rows = real_gather
+        packed_grid._k2_forward = real_forward
         packed_grid.scatter_add_bf16 = rle.scatter_add_bf16 = real_scatter
 
     NGPTrainer.train_iteration = step
-    packed_grid.gather_rows = gather
+    packed_grid._k2_forward = forward
     if k1p_checks is not None:
         packed_grid.scatter_add_bf16 = rle.scatter_add_bf16 = scatter
     return steps, checks, restore
 
 
 def _replayed_total(steps: dict) -> dict:
-    """The K1p and K2p launches that the replays of `_block_recorder`'s
+    """The K1p and K2 launches that the replays of `_block_recorder`'s
     steps ran, derived (each replay counted with what its graph's
     recording launched)."""
     return {k: sum(r[1][1][j] for rec in steps.values() for r in rec)
-            for j, k in enumerate(K1P_K2P)}
+            for j, k in enumerate(K1P_K2)}
 
 
 def _sphere_reach(np, T) -> float:
@@ -1238,8 +1340,8 @@ def frame_shares(torch, np, blocks: list, frames: dict, res: int, dev) -> dict:
 
 def multi_block_phase(torch, out_dir: str) -> dict:
     """The multi-block pipeline on the 36-view 128 px fixture (see the
-    module docstring, phase 7). Returns the K1p and K2p launches of its
-    run, its timings, and the bit-for-bit K2p checks."""
+    module docstring, phase 7). Returns the K1p and K2 launches of its
+    run, its timings, and the bit-for-bit K2 checks."""
     import numpy as np
 
     from dregnerf_tpu_torch.datasets import objaverse
@@ -1255,8 +1357,6 @@ def multi_block_phase(torch, out_dir: str) -> dict:
     from dregnerf_tpu_torch.eval_nerf_regtr import RegEvaluator, save_reg_checkpoint
     from dregnerf_tpu_torch.eval_ngp_nerf import Evaluator, eval_blocks
     from dregnerf_tpu_torch.models.regtr import random_jax_params
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add_bf16
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.ngp_trainer import OCC_UPDATE_INTERVAL
     from dregnerf_tpu_torch.runtime.reg_trainer import make_reg_model
@@ -1316,13 +1416,13 @@ def multi_block_phase(torch, out_dir: str) -> dict:
         return out
 
     Evaluator.sample_points = sample_points
-    scatter_add_bf16.launches = gather_rows.launches = 0
+    _reset_kernel_launches()
     try:
         t1 = time.perf_counter()
         trainers = train_blocks(cfg, splits["train"], splits["test"])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        train_launches = (scatter_add_bf16.launches, gather_rows.launches)
+        train_launches = _kernel_launches()
         model_dirs = [t.output_dir for t in trainers]
         results = eval_blocks(cfg, model_dirs, splits["test"])
         torch.cuda.synchronize()
@@ -1330,20 +1430,22 @@ def multi_block_phase(torch, out_dir: str) -> dict:
     finally:
         restore()
         Evaluator.sample_points = real_sample
-    launches = {"scatter_add_bf16": scatter_add_bf16.launches, "gather_rows": gather_rows.launches}
+    launches = _kernel_launches()
     check(len(trainers) == 2 and all(t.device.type == "cuda" for t in trainers),
           "two blocks trained on the card")
+    check(launches["gather_rows"] == 0 and launches["scatter_add"] == 0,
+          f"multi-block: K2p or K1 launched: {launches}")
     per_block = []
     for k, trainer in enumerate(trainers):
         rec = steps[id(trainer)]
         check([r[0] for r in rec] == list(range(MB_STEPS)), f"block {k}: steps run")
         steady = [r for r in rec if r[0] % OCC_UPDATE_INTERVAL]
-        bad = [r[:2] for r in steady if not _ngp_step_ok(r[1], 4)]
-        check(not bad, f"block {k}: steps without an occupancy update whose K1p/K2p launches "
-              f"(host, replayed, captures, replays) are not 4/4: {bad[:8]}")
+        bad = [r[:2] for r in steady if not _ngp_step_ok(r[1], k1p_k2_step(MB_LEVELS))]
+        check(not bad, f"block {k}: steps without an occupancy update whose K1p/K2 launches "
+              f"(host, replayed, captures, replays) are not 4/1/1/1: {bad[:8]}")
         calls = checks.get(id(trainer), [])
-        check(len(calls) == MB_LEVELS and all(eq for _, _, eq in calls),
-              f"block {k}: K2p against index_select at step {MB_CHECK_STEP}: {calls}")
+        check(len(calls) == 1 and all(eq for _, _, eq in calls),
+              f"block {k}: K2 against its plain forward at step {MB_CHECK_STEP}: {calls}")
         late = [r for r in steady if r[0] >= MB_STEPS - 64]
         ms = statistics.mean(r[2].elapsed_time(r[3]) for r in late)
         val_psnr = trainer.validate(MB_STEPS)
@@ -1360,19 +1462,19 @@ def multi_block_phase(torch, out_dir: str) -> dict:
         per_block.append({"ms_per_step": ms, "val_psnr": val_psnr, "eval_psnr": metrics["psnr"],
                           "surface_voxels": n_surface, "occupied_voxels": len(extracted["points"]),
                           "cameras": cams, "extract_s": timings[model_dirs[k]],
-                          "rays_per_s": rays / timings[model_dirs[k]], "k2p_checked": calls})
+                          "rays_per_s": rays / timings[model_dirs[k]], "k2_checked": calls})
         print(f"multi-block block {k}: {MB_STEPS} steps, steps {MB_STEPS - 64}-{MB_STEPS - 1} "
               f"without an occupancy update {ms:.2f} ms/step device at bucket "
               f"{trainer.num_rays}; val psnr {val_psnr:.3f}, eval psnr {metrics['psnr']:.3f} "
-              f"({metrics['num_views']} test view); K1p/K2p 4/4 in each of {len(steady)} steps "
-              f"without an occupancy update; K2p bit for bit against index_select at step "
+              f"({metrics['num_views']} test view); K1p/K2 4/1/1/1 in each of {len(steady)} "
+              f"steps without an occupancy update; K2 bit for bit against its plain forward at step "
               f"{MB_CHECK_STEP} on {[(shape, n) for shape, n, _ in calls]}; extraction "
               f"{timings[model_dirs[k]]:.3f} s over {len(extracted['points'])} occupied voxels "
               f"and {cams} cameras ({rays / timings[model_dirs[k]]:.1f} rays/s), "
               f"{n_surface} surface voxels", flush=True)
     replayed = _replayed_total(steps)
     print(f"multi-block: train_blocks {t2 - t1:.3f} s, eval_blocks {t3 - t2:.3f} s; host "
-          f"launches in training K1p/K2p {train_launches}, in the whole run {launches}; "
+          f"launches in training {train_launches}, in the whole run {launches}; "
           f"replayed (derived) {replayed}", flush=True)
 
     shares = frame_shares(torch, np, model_dirs, frames, res, trainers[0].device)
@@ -1429,15 +1531,13 @@ def multi_block_phase(torch, out_dir: str) -> dict:
 def stage3_fleet_phase(torch, out_dir: str) -> dict:
     """The twin of the stage-3 experiment at full width and small depth
     (see the module docstring): the scenes' shapes and the box scene's
-    RGBA, its stage1_and_2, stage3 and evaluate with K1p and K2p held
+    RGBA, its stage1_and_2, stage3 and evaluate with K1p and K2 held
     against their plain versions at L8F4's width, the regdata tree, finite
     losses and the metrics files. Returns the launches, seconds and the
     held-out pairs' errors."""
     import numpy as np
 
     from dregnerf_tpu_torch.datasets import fixtures
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add_bf16
     from dregnerf_tpu_torch.runtime.ngp_trainer import OCC_UPDATE_INTERVAL
     from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer
     from dregnerf_tpu_torch.scripts.experiments import stage3_fleet as twin
@@ -1468,7 +1568,7 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     k1p_checks = {}
-    steps, k2p_checks, restore = _block_recorder(torch, S3_CHECK_STEP, S3_LEVELS, k1p_checks)
+    steps, k2_checks, restore = _block_recorder(torch, S3_CHECK_STEP, S3_LEVELS, k1p_checks)
     reg_metrics, real_iteration = [], RegTrainer.train_iteration
 
     def reg_iteration(self, item):
@@ -1477,13 +1577,13 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
         return out
 
     RegTrainer.train_iteration = reg_iteration
-    scatter_add_bf16.launches = gather_rows.launches = 0
+    _reset_kernel_launches()
     try:
         t1 = time.perf_counter()
         reg_root = twin.stage1_and_2(knobs)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        ngp_launches = (scatter_add_bf16.launches, gather_rows.launches)
+        ngp_launches = _kernel_launches()
         trainer, val_ds, test_scenes = twin.stage3(reg_root, knobs)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
@@ -1494,27 +1594,29 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
         restore()
         RegTrainer.train_iteration = real_iteration
     seconds = {"stage1_and_2": t2 - t1, "stage3": t3 - t2, "evaluate": t4 - t3}
-    launches = {"scatter_add_bf16": scatter_add_bf16.launches, "gather_rows": gather_rows.launches}
+    launches = _kernel_launches()
+    check(launches["gather_rows"] == 0 and launches["scatter_add"] == 0,
+          f"stage3 fleet: K2p or K1 launched: {launches}")
 
     check(len(steps) == 2 * knobs.scenes, f"{len(steps)} blocks trained")
-    ms, k2p_checked, k1p_checked = [], [], []
+    ms, k2_checked, k1p_checked = [], [], []
     for key, rec in steps.items():
         check([r[0] for r in rec] == list(range(S3_NGP_STEPS)), "stage3 fleet: block steps run")
         steady = [r for r in rec if r[0] % OCC_UPDATE_INTERVAL]
-        bad = [r[:2] for r in steady if not _ngp_step_ok(r[1], S3_LEVELS)]
-        check(not bad, f"stage3 fleet: steps without an occupancy update whose K1p/K2p launches "
-              f"(host, replayed, captures, replays) are not {S3_LEVELS}/{S3_LEVELS}: {bad[:8]}")
+        bad = [r[:2] for r in steady if not _ngp_step_ok(r[1], k1p_k2_step(S3_LEVELS))]
+        check(not bad, f"stage3 fleet: steps without an occupancy update whose K1p/K2 launches "
+              f"(host, replayed, captures, replays) are not {S3_LEVELS}/1/1/1: {bad[:8]}")
         losses = torch.stack([r[4] for r in rec]).tolist()
         check(all(map(math.isfinite, losses)), "stage3 fleet: a non-finite stage-1 loss")
         ms.append(statistics.mean(r[2].elapsed_time(r[3]) for r in steady[-64:]))
-        k2p, k1p = k2p_checks.get(key, []), k1p_checks.get(key, [])
-        check(len(k2p) == S3_LEVELS and all(eq for _, _, eq in k2p)
-              and all(shape[1] == S3_WIDTH for shape, _, _ in k2p),
-              f"stage3 fleet: K2p against index_select at step {S3_CHECK_STEP}: {k2p}")
+        k2, k1p = k2_checks.get(key, []), k1p_checks.get(key, [])
+        check(len(k2) == 1 and all(eq for _, _, eq in k2)
+              and all(8 * shape[1] == S3_WIDTH for shape, _, _ in k2),
+              f"stage3 fleet: K2 against its plain forward at step {S3_CHECK_STEP}: {k2}")
         check(len(k1p) == S3_LEVELS and all(r <= 1.0 for _, _, r in k1p)
               and all(shape[1] == S3_WIDTH for shape, _, _ in k1p),
               f"stage3 fleet: K1p against its plain version at step {S3_CHECK_STEP}: {k1p}")
-        k2p_checked += k2p
+        k2_checked += k2
         k1p_checked += k1p
 
     surface = {}
@@ -1551,10 +1653,10 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
     print(f"stage3 fleet: {2 * knobs.scenes} L8F4 blocks of {S3_NGP_STEPS} steps, "
           f"{statistics.mean(ms):.2f} ms/step device (steps without an occupancy update, last "
           f"64 a block; {[round(x, 2) for x in ms]}), val PSNR {psnr}, surface voxels "
-          f"{surface}; K1p/K2p {S3_LEVELS}/{S3_LEVELS} in every such step, K2p bit for bit "
-          f"against index_select and K1p within its slot bound (worst ratio "
+          f"{surface}; K1p/K2 {S3_LEVELS}/1/1/1 in every such step, K2's forward bit for "
+          f"bit against its plain version and K1p within its slot bound (worst ratio "
           f"{max(r for _, _, r in k1p_checked):.4f}) on each level's call of step "
-          f"{S3_CHECK_STEP} of every block ({len(k2p_checked)} + {len(k1p_checked)} calls, "
+          f"{S3_CHECK_STEP} of every block ({len(k2_checked)} + {len(k1p_checked)} calls, "
           f"rows {S3_WIDTH} wide); stage 3: {S3_REG_STEPS} steps, total loss "
           f"{reg_losses[0]['total']:.4f} -> {reg_losses[-1]['total']:.4f}; host launches in "
           f"stage 1-2 {ngp_launches}, in the whole run {launches}; replayed (derived) "
@@ -1565,13 +1667,13 @@ def stage3_fleet_phase(torch, out_dir: str) -> dict:
     return {"launches": launches, "replayed": _replayed_total(steps), "seconds": seconds,
             "ms_per_step": ms, "surface_voxels": surface, "val_psnr": psnr, "pairs": pairs,
             "k1p_worst_ratio": max(r for _, _, r in k1p_checked),
-            "index_checks": len(k2p_checked) + len(k1p_checked)}
+            "index_checks": len(k2_checked) + len(k1p_checked)}
 
 
 def novel_views_phase(torch, multi: dict, out_dir: str) -> dict:
     """The multi-block pair's NeRFs rendered (see the module docstring,
     phase 8): one frame card against CPU, then RegEvaluator.evaluate()
-    with --render_videos; returns K2p's launches and the render times."""
+    with --render_videos; returns K2's forward launches and the render times."""
     import shutil
 
     import numpy as np
@@ -1677,18 +1779,20 @@ def novel_views_phase(torch, multi: dict, out_dir: str) -> dict:
     render_s = sum(spans)
     rays = n_renders * 100 * 100
     check(len(spans) == len(NV_TAGS), f"render_pair_views ran {len(spans)} times")
-    launches = counts["gather_rows"]
-    check(launches > 0 and counts["scatter_add"] == counts["scatter_add_bf16"] == 0,
-          f"--render_videos launches (K2p must launch, K1 and K1p not): {counts}")
+    launches = counts["packed_grid_fwd"]
+    check(launches > 0 and counts["scatter_add"] == counts["scatter_add_bf16"]
+          == counts["gather_rows"] == 0,
+          f"--render_videos launches (K2's forward must launch, K1, K1p and K2p not): {counts}")
     print(f"novel views [RegEvaluator.evaluate() --render_videos, {len(NV_TAGS)} tags x "
           f"{NV_ORBIT} orbit cameras x 2 NeRFs = {n_renders} renders of 100 x 100]: every "
           f"frame, depth and pair frame written; mp4 {'written (ffmpeg on PATH)' if ffmpeg else 'not written (no ffmpeg on PATH)'}; "
-          f"K2p launches {launches} (expected {NV_K2P_PER_RENDER} a render = "
-          f"{NV_K2P_PER_RENDER * n_renders}), K1 and K1p none; render_pair_views {render_s:.3f} s "
+          f"K2 forward launches {launches} (expected {NV_K2_PER_RENDER} a render = "
+          f"{NV_K2_PER_RENDER * n_renders}), K1, K1p and K2p none; render_pair_views "
+          f"{render_s:.3f} s "
           f"({[round(x, 3) for x in spans]} s a tag): {n_renders / render_s:.2f} renders/s, "
           f"{len(NV_TAGS) * NV_ORBIT / render_s:.2f} pair frames/s, {rays / render_s:.1f} "
           f"rays/s; evaluate() {t2 - t1:.3f} s in all", flush=True)
-    return {"k2p_launches": launches, "render_s": render_s, "renders": n_renders,
+    return {"k2_launches": launches, "render_s": render_s, "renders": n_renders,
             "rays_per_s": rays / render_s, "psnr_card_cpu": psnr, "opacity_share": share,
             "ffmpeg": ffmpeg}
 
@@ -1699,11 +1803,9 @@ def marcher_phase(torch, grid, out_dir: str) -> dict:
     card against the CPU on the same rays and jitter; the time of each one's
     cumsum (flat for compact, by rows for quota); then MARCH_STEPS full-width
     training steps under each and under "capped" from the same start.
-    Returns the K1p and K2p launches of each marcher's steps."""
+    Returns the K1p and K2 launches of each marcher's steps."""
     from dregnerf_tpu_torch.ops import ray_march
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
     from dregnerf_tpu_torch.ops.occupancy import OccupancyGrid
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add_bf16
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.ngp_trainer import NGPTrainer
 
@@ -1750,7 +1852,7 @@ def marcher_phase(torch, grid, out_dir: str) -> dict:
                                            out_dir, "--march_compaction", mode])
         trainer = NGPTrainer(cfg, scene, val_scene)
         torch.cuda.synchronize()
-        scatter_add_bf16.launches = gather_rows.launches = 0
+        _reset_kernel_launches()
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(MARCH_STEPS + 1)]
         per_step, losses = [], []
         marks[0].record()
@@ -1763,16 +1865,14 @@ def marcher_phase(torch, grid, out_dir: str) -> dict:
         torch.cuda.synchronize()
         losses = [float(x) for x in losses]
         check(all(math.isfinite(x) for x in losses), f"{mode}: losses {losses}")
-        check(all(_ngp_step_ok(p, 4) for p in per_step[1:]),
-              f"{mode}: K1p/K2p launches (host, replayed, captures, replays) a step {per_step}")
+        check(all(_ngp_step_ok(p, k1p_k2_step(4)) for p in per_step[1:]),
+              f"{mode}: K1p/K2 launches (host, replayed, captures, replays) a step {per_step}")
         ms = statistics.mean(marks[i].elapsed_time(marks[i + 1]) for i in range(1, MARCH_STEPS))
-        replayed = {k: sum(p[1][j] for p in per_step) for j, k in enumerate(K1P_K2P)}
-        out[mode] = {"launches": {"scatter_add_bf16": scatter_add_bf16.launches,
-                                  "gather_rows": gather_rows.launches}, "replayed": replayed,
-                     "ms_per_step": ms}
+        replayed = {k: sum(p[1][j] for p in per_step) for j, k in enumerate(K1P_K2)}
+        out[mode] = {"launches": _kernel_launches(), "replayed": replayed, "ms_per_step": ms}
         print(f"train [{mode}]: {MARCH_STEPS} steps from scratch at bucket {cfg.init_num_rays}, "
               f"steps 1-{MARCH_STEPS - 1} {ms:.2f} ms/step device; losses "
-              f"{[round(x, 5) for x in losses]}; K1p/K2p launches a step (host, replayed "
+              f"{[round(x, 5) for x in losses]}; K1p/K2 launches a step (host, replayed "
               f"(derived), captures, replays) {per_step}", flush=True)
         del trainer
         torch.cuda.empty_cache()
@@ -1837,8 +1937,6 @@ def fleet_phase(torch, out_dir: str) -> dict:
     from dregnerf_tpu_torch.datasets.fixtures import render_views
     from dregnerf_tpu_torch.models import ngp
     from dregnerf_tpu_torch.ops import packed_grid
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
     from dregnerf_tpu_torch.parallel import fleet as pfleet
     from dregnerf_tpu_torch.runtime import fleet_trainer
     from dregnerf_tpu_torch.runtime.config import config_parser
@@ -1846,6 +1944,7 @@ def fleet_phase(torch, out_dir: str) -> dict:
         NGPTrainer,
         OCC_UPDATE_INTERVAL,
         draw_step_inputs,
+        launches as host_launches,
         step_loss,
     )
     from dregnerf_tpu_torch.train_ngp_nerf import train_fleet
@@ -1866,16 +1965,16 @@ def fleet_phase(torch, out_dir: str) -> dict:
         str(FLEET_STEPS // 4)])
 
     # record each block-step (launches, CUDA events), the first step's
-    # state, draws and gradients, and block 0's K2p calls at step 1
+    # state, draws and gradients, and block 0's K2 forward at step 1
     real_block_step, real_fleet_step = pfleet.block_step, fleet_trainer.fleet_train_step
-    real_gather = packed_grid.gather_rows
-    block_rec, fleet_rec, first, k2p_calls, current = [], [], {}, [], [None]
+    real_forward = packed_grid._k2_forward
+    block_rec, fleet_rec, first, k2_calls, current = [], [], {}, [], [None]
 
-    def gather(table, idx):
-        out = real_gather(table, idx)
-        if current[0] == (1, 0) and len(k2p_calls) < MB_LEVELS:
-            k2p_calls.append((tuple(table.shape), int(idx.numel()),
-                              torch.equal(out, gather_rows_plain(table, idx))))
+    def forward(table, x, config):
+        out = real_forward(table, x, config)
+        if current[0] == (1, 0) and not k2_calls:
+            k2_calls.append((tuple(table.shape), int(x.shape[0]),
+                             torch.equal(out, packed_grid.k2_forward_plain(table, x, config))))
         return out
 
     def block_step(trainer, step, num_rays, draws=None):
@@ -1898,7 +1997,7 @@ def fleet_phase(torch, out_dir: str) -> dict:
 
             trainer.apply_gradients = apply
         current[0] = (step, k)
-        before = (scatter_add_bf16.launches, gather_rows.launches)
+        before = host_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         try:
@@ -1908,8 +2007,8 @@ def fleet_phase(torch, out_dir: str) -> dict:
         end.record()
         if step == 0:
             first[k]["loss"] = out["loss"]
-        block_rec.append((step, k, scatter_add_bf16.launches - before[0],
-                          gather_rows.launches - before[1], start, end))
+        after = host_launches()
+        block_rec.append((step, k, tuple(after[n] - before[n] for n in K1P_K2), start, end))
         return out
 
     def fleet_step(trainers, step, num_rays, draws=None):
@@ -1929,7 +2028,7 @@ def fleet_phase(torch, out_dir: str) -> dict:
 
     NGPTrainer.__init__ = init
     pfleet.block_step, fleet_trainer.fleet_train_step = block_step, fleet_step
-    packed_grid.gather_rows = gather
+    packed_grid._k2_forward = forward
     _reset_kernel_launches()
     try:
         t0 = time.perf_counter()
@@ -1939,20 +2038,21 @@ def fleet_phase(torch, out_dir: str) -> dict:
     finally:
         NGPTrainer.__init__ = real_init
         pfleet.block_step, fleet_trainer.fleet_train_step = real_block_step, real_fleet_step
-        packed_grid.gather_rows = real_gather
+        packed_grid._k2_forward = real_forward
     launches = _kernel_launches()
     trainers = fleet.trainers
     check(len(trainers) == 2 and all(t.device.type == "cuda" for t in trainers)
           and fleet.blocks == [0, 1], f"fleet: blocks {fleet.blocks} on the card")
-    check(launches["scatter_add"] == 0, "K1 ran in the fleet at the CLI defaults")
-    bad = [(s, k, a, b) for s, k, a, b, _, _ in block_rec if (a, b) != (4, 4)]
+    check(launches["scatter_add"] == 0 and launches["gather_rows"] == 0,
+          f"K1 or K2p ran in the fleet at the CLI defaults: {launches}")
+    bad = [(s, k, n) for s, k, n, _, _ in block_rec if n != k1p_k2_step(MB_LEVELS)]
     check(len(block_rec) == 2 * FLEET_STEPS and not bad,
-          f"fleet: {len(block_rec)} block-steps, K1p/K2p launches other than (4, 4): {bad[:8]}")
-    check(len(k2p_calls) == MB_LEVELS and all(eq for _, _, eq in k2p_calls),
-          f"fleet: K2p against index_select at step 1 of block 0: {k2p_calls}")
+          f"fleet: {len(block_rec)} block-steps, K1p/K2 launches other than 4/1/1/1: {bad[:8]}")
+    check(len(k2_calls) == 1 and all(eq for _, _, eq in k2_calls),
+          f"fleet: K2 against its plain forward at step 1 of block 0: {k2_calls}")
     quiet = [r for r in fleet_rec if r[0] % OCC_UPDATE_INTERVAL and r[0] >= FLEET_STEPS // 2]
     fleet_ms = statistics.mean(a.elapsed_time(b) for _, a, b in quiet)
-    block_ms = statistics.mean(a.elapsed_time(b) for s, _, _, _, a, b in block_rec
+    block_ms = statistics.mean(a.elapsed_time(b) for s, _, _, a, b in block_rec
                                if s % OCC_UPDATE_INTERVAL and s >= FLEET_STEPS // 2)
 
     # each block's first step against one NGPTrainer step from the same
@@ -1991,15 +2091,15 @@ def fleet_phase(torch, out_dir: str) -> dict:
         f"{FLEET_STEPS + PROFILE_STEPS}", "fleet step")
     out = {"fleet_ms": fleet_ms, "block_ms": block_ms, "busy_ms": busy_ms,
            "profiled_ms": profiled_ms, "idle_share": 1 - busy_ms / fleet_ms, "wall_s": wall,
-           "launches": launches, "blocks": blocks, "k2p_checked": k2p_calls}
+           "launches": launches, "blocks": blocks, "k2_checked": k2_calls}
     print(f"fleet: {FLEET_STEPS} fleet steps of 2 blocks at {cfg.init_num_rays} rays a block "
           f"in {wall:.3f} s wall (with the checkpoints and the validations); fleet steps "
           f"{FLEET_STEPS // 2}-{FLEET_STEPS - 1} without an occupancy update "
           f"{fleet_ms:.3f} ms/fleet step, {block_ms:.3f} ms/block-step (CUDA events); device "
           f"busy {busy_ms:.3f} ms/fleet step (profiled), idle share {out['idle_share']:.4f}; "
-          f"val psnr {[round(b['val_psnr'], 3) for b in blocks]}; K1p/K2p 4/4 in each of "
-          f"{len(block_rec)} block-steps, launches {launches}; K2p bit for bit against "
-          f"index_select at step 1 of block 0 on {[(s, n) for s, n, _ in k2p_calls]}; "
+          f"val psnr {[round(b['val_psnr'], 3) for b in blocks]}; K1p/K2 4/1/1/1 in each of "
+          f"{len(block_rec)} block-steps, launches {launches}; K2 bit for bit against its "
+          f"plain forward at step 1 of block 0 on {[(s, n) for s, n, _ in k2_calls]}; "
           f"first step against NGPTrainer's: {first_step}; checkpoints read back bit for bit",
           flush=True)
     return out
@@ -2115,9 +2215,8 @@ def mesh_world1_phase(torch, out_dir: str, block_dir: str, root: str, subject: s
               and math.isclose(ms["loss"].item(), md["loss"].item(), rel_tol=MESH_LOSS_REL),
               f"mesh DP step: loss {ms['loss'].item()} / {md['loss'].item()}, samples "
               f"{int(ms['n_samples'])} / {int(md['n_samples'])}")
-        check(dp_launches == {"scatter_add": 0, "scatter_add_bf16": MB_LEVELS,
-                               "gather_rows": MB_LEVELS},
-              f"mesh DP step: launches {dp_launches}, not K1p/K2p {MB_LEVELS}/{MB_LEVELS}")
+        check(dp_launches == _packed_launches(MB_LEVELS, 1, 1),
+              f"mesh DP step: launches {dp_launches}, not K1p/K2 {MB_LEVELS}/1/1/1")
         out["dp_step"] = {"loss": md["loss"].item(), "single_loss": ms["loss"].item(),
                           "n_samples": int(md["n_samples"]), "launches": dp_launches,
                           **_grads_agree(torch, packed_grid, trainer.model_config.grid, gd, gs,
@@ -2141,11 +2240,10 @@ def mesh_world1_phase(torch, out_dir: str, block_dir: str, root: str, subject: s
         surface_launches = _kernel_launches()
         check(np.array_equal(scores[0], scores[1]),
               f"mesh surface pass: {np.abs(scores[0] - scores[1]).max()} off")
-        # one density query (a K2p launch a level) for each chunk of
+        # one density query (a K2 forward) for each chunk of
         # compute_surface_mask's default 2^17 // 64 rays and each camera
         calls = -(-len(points) // ((1 << 17) // 64)) * len(cams)
-        check(surface_launches == {"scatter_add": 0, "scatter_add_bf16": 0,
-                                   "gather_rows": MB_LEVELS * calls},
+        check(surface_launches == _packed_launches(forward=calls),
               f"mesh surface pass: launches {surface_launches}, {calls} density queries")
         out["surface"] = {"points": len(points), "cameras": len(cams),
                           "surface": int((scores[0] >= 0.5).sum()),
@@ -2212,7 +2310,7 @@ def mesh_world1_phase(torch, out_dir: str, block_dir: str, root: str, subject: s
           f"gradients and launches {out['dp_step']}; surface pass over "
           f"{out['surface']['points']} voxels x {out['surface']['cameras']} cameras equal "
           f"({out['surface']['surface']} at S >= 0.5)"
-          f", K2p launches {surface_launches}; sharded_attention on {n} tokens equal; RegTr DP "
+          f", launches {surface_launches}; sharded_attention on {n} tokens equal; RegTr DP "
           f"step: gradient within {out['reg_step']['grad_rel_norm']:.3e} of the single-pair "
           f"step's norm (two single-pair gradients at the same parameters: "
           f"{out['reg_step']['repeat_rel_norm']:.3e} apart), losses within "
@@ -2344,10 +2442,10 @@ def mesh_phase(torch, out_dir: str, block_dir: str, root: str, subject: str) -> 
           and res[0]["reg_sums"][0] == res[0]["reg_sums"][1] and res[0]["reg_sums"]
           == res[1]["reg_sums"], f"mesh ranks' checksums {[r['sums'] for r in res]} "
           f"{[r['reg_sums'] for r in res]}")
-    want = {"scatter_add": 0, "scatter_add_bf16": MB_LEVELS, "gather_rows": MB_LEVELS}
+    want = _packed_launches(MB_LEVELS, 1, 1)
     check(all(len(r["launches"]) == MESH_DP_STEPS and all(x == want for x in r["launches"])
               for r in res), f"mesh ranks: DP steps' launches {[r['launches'] for r in res]}, "
-          f"not K1p/K2p {MB_LEVELS}/{MB_LEVELS} in each")
+          f"not K1p/K2 {MB_LEVELS}/1/1/1 in each")
     check(all(r["metrics"] == res[0]["metrics"] for r in res), "mesh ranks' metrics differ")
 
     # each step's mean-of-shards gradient in this process, at the ranks'
@@ -2424,8 +2522,8 @@ def mesh_phase(torch, out_dir: str, block_dir: str, root: str, subject: str) -> 
     out["ranks"] = {"seconds": ranks_s, "losses": got, "step_grads": step_grads,
                     "launches": rank_launches, "reg_grad_rel_norm": reg_grad_rel}
     print(f"mesh [2 ranks, gloo on cuda:0]: {ranks_s:.3f} s for both ranks' runs; "
-          f"{MESH_DP_STEPS} stage-1 DP steps: losses {got} (one-process {losses}), K1p/K2p "
-          f"{MB_LEVELS}/{MB_LEVELS} in each step of each rank; each step's mean gradient "
+          f"{MESH_DP_STEPS} stage-1 DP steps: losses {got} (one-process {losses}), K1p/K2 "
+          f"{MB_LEVELS}/1/1/1 in each step of each rank; each step's mean gradient "
           f"against the one-process mean-of-shards one at the same parameters {step_grads}; "
           f"parameters Adam's steps on those gradients bit for bit, equal on both ranks "
           f"(checksum {res[0]['sums'][0]}); RegTr DP step: gradient within "
@@ -3104,8 +3202,8 @@ def reg_train_parity_phase(torch, trainer, item) -> None:
 
 def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     """Stage-3 training at full width in bf16 on the register phase's pair
-    (see the module docstring, phase 12). Returns the K2p launches of the
-    exact-visibility steps and K2p's times and bounds on that path."""
+    (see the module docstring, phase 12). Returns the K2 forward launches
+    of the exact-visibility steps and K2's times and bounds on that path."""
     import numpy as np
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -3113,7 +3211,6 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     from dregnerf_tpu_torch.eval_nerf_regtr import RegEvaluator
     from dregnerf_tpu_torch.losses.visibility import exact_visibility_ctx, grid_visibility
     from dregnerf_tpu_torch.ops import packed_grid
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
     from dregnerf_tpu_torch.runtime.config import config_parser
     from dregnerf_tpu_torch.runtime.reg_trainer import RegTrainer, to_device
 
@@ -3257,20 +3354,21 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
     torch.cuda.empty_cache()
 
     # two steps with labels marched through the phase-6 block's NeRF; each
-    # K2p call of the path keeps its inputs and output (first call per table)
+    # K2 forward of the path keeps its inputs and output (first call per table)
     exact = RegTrainer(config_parser(flags + ["--expname", "chip_smoke_reg_exact",
                                               "--visibility", "exact"]), train_ds, val_ds)
-    gathers, calls = {}, [0]
-    real_gather = packed_grid.gather_rows
+    forwards, calls = {}, [0]
+    real_forward = packed_grid._k2_forward
+    k2 = packed_grid.vertex_encode
 
-    def recorded(table, idx):
-        out = real_gather(table, idx)
+    def recorded(table, x, config):
+        out = real_forward(table, x, config)
         calls[0] += 1
-        gathers.setdefault(table.data_ptr(), (table, idx, out))
+        forwards.setdefault(table.data_ptr(), (table, x, config, out))
         return out
 
-    packed_grid.gather_rows = recorded
-    gather_rows.launches = 0
+    packed_grid._k2_forward = recorded
+    before = k2.launches
     exact_s = []
     try:
         for _ in range(REG_EXACT_STEPS):
@@ -3281,45 +3379,39 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
             check(all(math.isfinite(float(m[k])) for k in LOSS_NAMES)
                   and float(m["skipped_nonfinite"]) == 0.0, f"exact step: {m}")
     finally:
-        packed_grid.gather_rows = real_gather
-    k2p = gather_rows.launches
-    check(k2p > 0 and k2p == calls[0],
-          f"exact visibility: {k2p} K2p launches, {calls[0]} gather calls")
+        packed_grid._k2_forward = real_forward
+    launched = k2.launches - before
+    check(launched > 0 and launched == calls[0],
+          f"exact visibility: {launched} K2 forward launches, {calls[0]} forward calls")
     item = train_ds[0]
-    # K2p on the path's own tables and slots, bit for bit against index_select
-    levels = {}
-    for side in ("src", "tgt"):
-        for lvl, table in enumerate(exact._get_vis_ctx(item[f"{side}_nerf_path"])
-                                    .params["packed_table"]):
-            levels.setdefault(table.data_ptr(), []).append((side, lvl))
-    check(set(gathers) == set(levels),
-          f"exact visibility gathered {len(gathers)} tables, the fields hold {len(levels)}")
-    for ptr, (table, idx, out) in gathers.items():
-        check(torch.equal(out, gather_rows_plain(table, idx)),
-              f"K2p on the exact path at {levels[ptr]}: not equal to index_select")
-    print(f"register train [--visibility exact]: K2p held bit for bit against index_select "
-          f"on the first call of each of {len(gathers)} tables (side, level) "
-          f"{sorted(v for vs in levels.values() for v in vs)}: "
-          f"{[tuple(t.shape) for t, _, _ in gathers.values()]} rows, "
-          f"{[int(i.numel()) for _, i, _ in gathers.values()]} slots", flush=True)
-    # K2p's bound on the path's own calls: idx read, each distinct table row
-    # read once, the output written; their device time alone in the profiler
-    # (at 2^16 rows a call the wrapper's host time exceeds the kernel's, so
-    # back-to-back calls would time the host)
+    # K2 on the path's own tables and points, bit for bit against its plain forward
+    sides = {exact._get_vis_ctx(item[f"{side}_nerf_path"]).params["table"].data_ptr(): side
+             for side in ("src", "tgt")}
+    check(set(forwards) == set(sides),
+          f"exact visibility read {len(forwards)} tables, the fields hold {len(sides)}")
+    for ptr, (table, x, config, out) in forwards.items():
+        check(torch.equal(out, packed_grid.k2_forward_plain(table, x, config)),
+              f"K2 on the exact path at {sides[ptr]}: not equal to its plain forward")
+    print(f"register train [--visibility exact]: K2's forward held bit for bit against its "
+          f"plain version on the first call on each field's table {sorted(sides.values())}: "
+          f"{[tuple(t.shape) for t, _, _, _ in forwards.values()]} rows, "
+          f"{[int(x.shape[0]) for _, x, _, _ in forwards.values()]} points", flush=True)
+    # K2's bound on the path's own calls: positions read and the encoding
+    # written; their device time alone in the profiler (at 2^16 points a
+    # call the wrapper's host time exceeds the kernel's, so back-to-back
+    # calls would time the host)
     exact_calls = []
-    for ptr, (table, idx, _) in gathers.items():
-        n, width = idx.numel(), table.shape[1]
-        distinct = int(torch.unique(idx).numel())
-        exact_calls.append({"table": levels[ptr], "rows": int(table.shape[0]), "slots": n,
-                            "distinct": distinct,
-                            "bound_ms": bound_ms(4 * n + 4 * width * distinct + 4 * n * width),
-                            "ms": device_ms(torch, lambda: gather_rows(table, idx),
-                                            "gather_rows_f32x4")})
+    for ptr, (table, x, config, _) in forwards.items():
+        n = int(x.shape[0])
+        exact_calls.append({"table": sides[ptr], "rows": int(table.shape[0]), "points": n,
+                            "bound_ms": bound_ms(n * (12 + 4 * config.out_dim)),
+                            "ms": device_ms(torch, lambda: real_forward(table, x, config),
+                                            "void packed_grid_fwd<")})
     for c in exact_calls:
-        print(f"K2p exact path {c['table']}: table_rows={c['rows']} slots={c['slots']} "
-              f"({c['distinct']} distinct rows): kernel {c['ms'] * 1e3:.2f} us device, bound "
-              f"{c['bound_ms'] * 1e3:.2f} us (bytes)", flush=True)
-    del gathers
+        print(f"K2 forward exact path {c['table']}: table_rows={c['rows']} points={c['points']}: "
+              f"kernel {c['ms'] * 1e3:.2f} us device, bound {c['bound_ms'] * 1e3:.2f} us (bytes)",
+              flush=True)
+    del forwards
     batch = to_device(item, exact.device)
     shares = []
     with torch.inference_mode():
@@ -3335,23 +3427,25 @@ def register_train_phase(torch, root: str, subject: str, out_dir: str) -> dict:
                            int(valid.sum()), int(ctx.cam_origins.shape[0])))
     _, kernels, _, _ = profiled(torch, lambda: exact.train_iteration(train_ds[0]), 1,
                              "register train exact profile", "step")
-    k2p_events = [e for e in kernels if e.key.startswith("gather_rows_f32x4")]
-    k2p_prof = sum(e.count for e in k2p_events)
-    check(k2p_prof > 0, "the profiler saw no K2p launch in an exact step")
-    k2p_us = sum(e.self_device_time_total for e in k2p_events) / k2p_prof
+    k2_events = [e for e in kernels if "packed_grid_fwd" in e.key]
+    k2_prof = sum(e.count for e in k2_events)
+    k2p_prof = sum(e.count for e in kernels if "gather_rows_f32x4" in e.key)
+    check(k2_prof > 0 and k2p_prof == 0,
+          f"the profiler saw {k2_prof} K2 forward and {k2p_prof} K2p launches in an exact step")
+    k2_us = sum(e.self_device_time_total for e in k2_events) / k2_prof
     mean = {k: statistics.mean(c[k] for c in exact_calls) for k in ("ms", "bound_ms")}
-    print(f"K2p exact path, mean of the {len(exact_calls)} first calls: kernel "
+    print(f"K2 forward exact path, mean of the {len(exact_calls)} first calls: kernel "
           f"{mean['ms'] * 1e3:.2f} us device, bound {mean['bound_ms'] * 1e3:.2f} us "
           f"({mean['bound_ms'] / mean['ms']:.2f} of the measured); in the profiled step "
-          f"{k2p_us:.2f} us a launch", flush=True)
+          f"{k2_us:.2f} us a launch", flush=True)
     print(f"register train [--visibility exact]: {REG_EXACT_STEPS} steps in "
-          f"{[round(s, 3) for s in exact_s]} s; K2p launches {k2p} (wrapper count), "
-          f"{k2p_prof} in the profiled third step; labels (side, exact visible share, grid "
+          f"{[round(s, 3) for s in exact_s]} s; K2 forward launches {launched} (wrapper count), "
+          f"{k2_prof} in the profiled third step, K2p none; labels (side, exact visible share, grid "
           f"visible share, disagreement, valid keypoints, cameras) "
           f"{[(s, round(a, 4), round(b, 4), round(c, 4), n, c_) for s, a, b, c, n, c_ in shares]}",
           flush=True)
-    return {"k2p_launches": k2p, "k2p_profiled": k2p_prof,
-            "k2p_exact": dict(mean, profiled_us_a_launch=k2p_us, calls=exact_calls)}
+    return {"k2_launches": launched, "k2_profiled": k2_prof,
+            "k2_exact": dict(mean, profiled_us_a_launch=k2_us, calls=exact_calls)}
 
 
 def read_pose_viewer(port: int) -> dict:
@@ -3508,19 +3602,33 @@ def mlp_macs(c) -> int:
     return macs
 
 
-def _kernel_launches():
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+# the packed grid's kernels: K1, K1p, K2p and K2's three
+PACKED_KERNELS = ("scatter_add", "scatter_add_bf16", "gather_rows", "packed_grid_fwd",
+                  "packed_grid_rows", "packed_grid_unpack")
 
-    return {"scatter_add": scatter_add.launches, "scatter_add_bf16": scatter_add_bf16.launches,
-            "gather_rows": gather_rows.launches}
+
+def _kernel_launches():
+    """The host launches of PACKED_KERNELS since the last reset."""
+    from dregnerf_tpu_torch.runtime.ngp_trainer import launches
+
+    counts = launches()
+    return {k: counts[k] for k in PACKED_KERNELS}
+
+
+def _packed_launches(k1p: int = 0, forward: int = 0, backward: int = 0) -> dict:
+    """PACKED_KERNELS' launches when K1p launches `k1p` times, K2's forward
+    `forward` times and its rows and unpack `backward` times each."""
+    return {"scatter_add": 0, "scatter_add_bf16": k1p, "gather_rows": 0,
+            "packed_grid_fwd": forward, "packed_grid_rows": backward,
+            "packed_grid_unpack": backward}
 
 
 def _reset_kernel_launches():
-    from dregnerf_tpu_torch.ops.gather_rows import gather_rows
-    from dregnerf_tpu_torch.ops.scatter_add import scatter_add, scatter_add_bf16
+    from dregnerf_tpu_torch.runtime.ngp_trainer import launch_counters
 
-    scatter_add.launches = scatter_add_bf16.launches = gather_rows.launches = 0
+    for name in PACKED_KERNELS:
+        fn, attr = launch_counters()[name]
+        setattr(fn, attr, 0)
 
 
 def train_timed(torch, trainer, steps: range) -> dict:
@@ -3662,8 +3770,8 @@ def hash_ngp_phase(torch, out_dir: str) -> dict:
     """Phase 14d: the xor-hash NGP at full width (HashGridConfig(): 16
     levels x 2^19 rows x 2 features, bf16 MLPs), built by the trainer from
     `--encoder xor_hash` at SHAPE_FLAGS, trained to HASH_STEPS, profiled,
-    saved, and evaluated and extracted through Evaluator; K1, K1p and K2p
-    must never launch, K6 forward and backward must."""
+    saved, and evaluated and extracted through Evaluator; K1, K1p, K2p and
+    K2 must never launch, K6 forward and backward must."""
     import numpy as np
 
     from dregnerf_tpu_torch.eval_ngp_nerf import Evaluator
@@ -3716,7 +3824,7 @@ def hash_ngp_phase(torch, out_dir: str) -> dict:
     launches = _kernel_launches()
     replayed = trainer.replayed_launches
     check(not any(launches.values()) and not any(replayed.get(k) for k in launches),
-          f"the hash NGP launched K1, K1p or K2p: host {launches}, replayed {replayed}")
+          f"the hash NGP launched K1, K1p, K2p or K2: host {launches}, replayed {replayed}")
     launches.update(hash_grid_fwd=hash_encode.launches, hash_grid_bwd=hash_encode.grad_launches)
     # every step a replay of a graph whose recording launched K6 once each
     # way; the host launched K6's backward only at the captures (warm-up and
@@ -3794,6 +3902,7 @@ def main() -> int:
     k1 = timed("K1", k1_phase, torch, dev)
     k1p = timed("K1p", k1p_phase, torch, dev)
     k2p = timed("K2p", k2p_phase, torch, dev)
+    k2 = timed("K2", k2_phase, torch, dev)
     k6 = timed("K6", k6_phase, torch, dev)
     timed("reference pallas", reference_phase, torch, dev, False)
     timed("reference defaults", reference_phase, torch, dev, True)
@@ -3824,7 +3933,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fields_") as out_dir:
         fields = timed("fields", fields_phase, torch, dev, out_dir)
     print(json.dumps({"fields": fields}), flush=True)
-    print(json.dumps({"fleet": {k: v for k, v in fleet.items() if k != "k2p_checked"},
+    print(json.dumps({"fleet": {k: v for k, v in fleet.items() if k != "k2_checked"},
                       "mesh": mesh, "stage3 fleet": s3}), flush=True)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
@@ -3847,12 +3956,12 @@ def main() -> int:
                 "compact": marchers["compact"]["launches"][name],
                 "quota": marchers["quota"]["launches"][name]}
 
-    def replayed_by_path(name):
-        return {"train defaults": default_replayed[name],
-                "multi-block": multi["replayed"][name],
-                "stage3-fleet": s3["replayed"][name],
-                "compact": marchers["compact"]["replayed"][name],
-                "quota": marchers["quota"]["replayed"][name]}
+    def replayed_by_path(name):  # the replays ran K1p and K2 (K1P_K2) only
+        return {"train defaults": default_replayed.get(name, 0),
+                "multi-block": multi["replayed"].get(name, 0),
+                "stage3-fleet": s3["replayed"].get(name, 0),
+                "compact": marchers["compact"]["replayed"].get(name, 0),
+                "quota": marchers["quota"]["replayed"].get(name, 0)}
 
     kernels = [
         entry("scatter_add", "scatter_add.cu", "dregnerf_tpu/ops/pallas_scatter.py:122",
@@ -3866,17 +3975,27 @@ def main() -> int:
              device_ms=k1p["device_ms"], host_us=k1p["host_us"], sass_reduction=k1p_sass,
              worst_tol_ratio=k1p["worst_tol_ratio"]),
         dict(entry("gather_rows", "gather_rows.cu", "scripts/perf/probe_pallas_gather.py:70",
-                   default_launches["gather_rows"], default_replayed["gather_rows"], k2p),
-             replayed_by_path=replayed_by_path("gather_rows"),
-             launches_by_path=dict(by_path("gather_rows"),
-                                   **{"novel views": views["k2p_launches"],
-                                      "register train exact visibility": exact["k2p_launches"]}),
-             multi_block_index_select_checks=sum(len(b["k2p_checked"])
-                                                 for b in multi["blocks"]),
-             fleet_index_select_checks=len(fleet["k2p_checked"]),
-             exact_path={k: exact["k2p_exact"][k] for k in ("ms", "bound_ms",
-                                                            "profiled_us_a_launch")}),
+                   default_launches["gather_rows"], 0, k2p),
+             launches_by_path=by_path("gather_rows")),
     ]
+    for part, kernel in (("forward", "packed_grid_fwd"), ("rows", "packed_grid_rows"),
+                         ("unpack", "packed_grid_unpack")):
+        k2_paths = by_path(kernel)
+        if part == "forward":
+            k2_paths.update({"novel views": views["k2_launches"],
+                             "register train exact visibility": exact["k2_launches"]})
+        kernels.append(dict(
+            entry(f"{kernel}_f32", "packed_grid.cu", "K2p's gather with pack_table's rolls and "
+                  "the trilinear einsum (scripts/perf/probe_pallas_gather.py:70)",
+                  default_launches[kernel], default_replayed[kernel],
+                  dict(k2[part], max_abs_err=0.0, library_ms=None)),
+            device_ms=k2[part]["device_ms"], launches_by_path=k2_paths,
+            replayed_by_path=replayed_by_path(kernel)))
+    kernels[-3].update(
+        encoder_fwd_bwd_ms=k2["encoder"],
+        multi_block_plain_checks=sum(len(b["k2_checked"]) for b in multi["blocks"]),
+        fleet_plain_checks=len(fleet["k2_checked"]),
+        exact_path={k: exact["k2_exact"][k] for k in ("ms", "bound_ms", "profiled_us_a_launch")})
     hash_launches, hash_replayed = fields["hash_ngp"]["launches"], fields["hash_ngp"]["replayed"]
     for part, kernel in (("forward", "hash_grid_fwd"), ("backward", "hash_grid_bwd")):
         kernels.append(dict(entry(f"{kernel}_f32", "hash_grid.cu", "none (XLA in the JAX "

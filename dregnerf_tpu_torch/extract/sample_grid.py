@@ -78,7 +78,7 @@ def make_surface_chunk_fn(params: Any, model_cfg: ngp.NGPConfig, grid: Occupancy
     """(origins, viewdirs, t_max) [chunk] on the device -> per-ray surface
     field S [chunk]. Each ray keeps its first `samples_per_ray` surviving
     steps (row layout), so a dense scene cannot starve later rays."""
-    params = ngp.prepare_params(params, model_cfg)  # packed once per fn
+    params = ngp.prepare_params(params, model_cfg)  # a CPU table packed once per fn
 
     @torch.no_grad()
     def call(origins, viewdirs, t_max):

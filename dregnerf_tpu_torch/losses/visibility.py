@@ -62,7 +62,8 @@ def exact_visibility_scores(params: Any, model_cfg: ngp.NGPConfig, grid: Occupan
     """max over cameras of the surface field S of the ray from the camera
     to each point (cut at the point): [M] f32.
 
-    `params` must hold the packed table (`ngp.prepare_params`). Points go
+    `params` come through `ngp.prepare_params` (a CPU table packed once;
+    on the card the encoder reads the vertex table in place). Points go
     in chunks of buffer_size // samples_per_ray rays and each ray keeps its
     first samples_per_ray survivors, so chunk * cap == buffer_size and the
     packed buffer cannot overflow. The camera loop runs on the host over

@@ -35,6 +35,7 @@ from dregnerf_tpu_torch.ops.packed_grid import (
     init_packed_grid,
     pack_table,
     packed_encode,
+    vertex_encode,
 )
 from dregnerf_tpu_torch.ops.sh import sh_encode
 
@@ -127,16 +128,17 @@ def _encode(params: Params, u: torch.Tensor, config: NGPConfig) -> torch.Tensor:
     if not _packed(config):
         return hash_encode(params["table"], u, config.grid)
     packed = params.get("packed_table")
-    if packed is None:
-        packed = pack_table(params["table"], config.grid)
-    return packed_encode(packed, u, config.grid)
+    if packed is not None:
+        return packed_encode(packed, u, config.grid)
+    return vertex_encode(params["table"], u, config.grid)
 
 
 def prepare_params(params: Params, config: NGPConfig) -> Params:
-    """Precompute the packed table once (inference loops; a hash grid is
-    not packed). Training packs inside the step so gradients flow to the
-    vertex table."""
-    if _packed(config) and "packed_table" not in params:
+    """Pack a CPU table once for an inference loop (the JAX package's form,
+    the CPU's reference path). The card's encoder (K2) reads the vertex
+    table in place, and a hash grid is not packed: nothing to prepare."""
+    if (_packed(config) and "packed_table" not in params
+            and params["table"].device.type == "cpu"):
         return dict(params, packed_table=pack_table(params["table"], config.grid))
     return params
 

@@ -40,12 +40,20 @@ _GATHER = ([_PTR, _PTR, _PTR, _ROWS, ctypes.c_int, _ROWS, _PTR], ctypes.c_int)
 # host resolutions, host dense flags)
 _HASH = ([_PTR, _PTR, _PTR, _ROWS, ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR, _PTR],
          ctypes.c_int)
+# K2: the tensors, then (n,) n_levels, n_features, log2_table_size, host
+# scales, host resolutions, host table rows
+_LEVELS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR, _PTR]
+_PACKED_FWD = ([_PTR, _PTR, _PTR, _ROWS, *_LEVELS], ctypes.c_int)  # (x, table, out)
+_PACKED_ROWS = ([_PTR, _PTR, _PTR, _PTR, _ROWS, *_LEVELS], ctypes.c_int)  # (x, dout, slots, rows)
+_PACKED_UNPACK = ([_PTR, _PTR, *_LEVELS], ctypes.c_int)  # (host pointers to G_l, dV)
 _DOUBLES, _INT, _DOUBLE = ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "scatter_add": {"scatter_add_f32": _SCATTER},
     "scatter_add_bf16": {"scatter_add_bf16": _SCATTER},
     "gather_rows": {"gather_rows_f32": _GATHER},
     "hash_grid": {"hash_grid_fwd_f32": _HASH, "hash_grid_bwd_f32": _HASH},
+    "packed_grid": {"packed_grid_fwd_f32": _PACKED_FWD, "packed_grid_rows_f32": _PACKED_ROWS,
+                    "packed_grid_unpack_f32": _PACKED_UNPACK},
     # host C++ (fgr.cpp); each returns 0 or a negative failure code
     "fgr": {
         # (src, n_src, tgt, n_tgt, voxel, out 4x4)

@@ -134,7 +134,7 @@ def render_image_chunked(
     rays, padded to whole chunks as in the reference; returns (rgb [N, 3],
     opacity [N], depth [N]). `time` renders the whole image at one time
     (D-NeRF)."""
-    params = field.prepare_params(params, model_config)  # pack once, not per chunk
+    params = field.prepare_params(params, model_config)  # once, not per chunk
     n = origins.shape[0]
     cs = config.chunk_size
     buf = eval_buffer_size or config.buffer_size

@@ -10,9 +10,10 @@ with `timestamps` (the dnerf loader) gives each ray its image's time.
 
 One step: sample pixels, blend synthetic RGBA over a random background,
 generate rays, march + render with stratified jitter, Huber loss over the
-alive rays, backward (the packed table's gradient goes through kernel K1
-or K1p and, at coarse levels, the run-length backward, as `grad_accum` and
-`rle_backward` say, ops/packed_grid.py; the hash table's through K6,
+alive rays, backward (the packed grid's through K2's rows and unpack
+around kernel K1 or K1p and, at coarse levels, the run-length backward, as
+`grad_accum` and `rle_backward` say, ops/packed_grid.py; the hash table's
+through K6,
 ops/hash_encoding.py), Adam (lr 1e-2, eps 1e-15) under the x0.33
 multistep schedule at {1/2, 3/4, 9/10} of training. Every 16 steps the
 occupancy grid gets an EMA update (all cells below step 256). The ray
@@ -195,13 +196,16 @@ def step_loss(params, model_config, render_config: RenderConfig,
 def launch_counters() -> dict:
     """(wrapper, attribute) of each kernel launch counter a step may
     advance, by the kernel's name."""
-    from dregnerf_tpu_torch.ops import gather_rows, hash_encoding, scatter_add
+    from dregnerf_tpu_torch.ops import gather_rows, hash_encoding, packed_grid, scatter_add
 
     return {"scatter_add": (scatter_add.scatter_add, "launches"),
             "scatter_add_bf16": (scatter_add.scatter_add_bf16, "launches"),
             "gather_rows": (gather_rows.gather_rows, "launches"),
             "hash_grid_fwd": (hash_encoding.hash_encode, "launches"),
-            "hash_grid_bwd": (hash_encoding.hash_encode, "grad_launches")}
+            "hash_grid_bwd": (hash_encoding.hash_encode, "grad_launches"),
+            "packed_grid_fwd": (packed_grid.vertex_encode, "launches"),
+            "packed_grid_rows": (packed_grid.vertex_encode, "rows_launches"),
+            "packed_grid_unpack": (packed_grid.vertex_encode, "unpack_launches")}
 
 
 def launches() -> dict[str, int]:

@@ -352,3 +352,113 @@ def test_hash_grid_spans_and_counters_on_the_card(cuda_device):
         assert snap["spans"][name]["device_ms"] is not None
     assert snap["counters"] == {"hash.encode_calls": 1, "hash.kernel_calls": 1,
                                 "hash.rows": 4096}
+
+
+# K2's layouts at full width: the CLI default L4F8 (levels 1-3 wrapped) and
+# the stage-3 twin's L8F4 (32-float packed rows, levels 3-7 wrapped)
+K2_LAYOUTS = {"L4F8": {}, "L8F4": dict(n_levels=8, n_features=4, per_level_scale=2.1)}
+
+
+def _k2_inputs(cfg, generator, device):
+    """2^18 ray-coherent points (the first 1024 uniform in [-0.1, 1.1]^3,
+    clipped to the box by the encoder) and a table uniform in [-1, 1]."""
+    x = _hash_points(1 << 18, True, generator, device)
+    x[:1024] = torch.rand(1024, 3, generator=generator, device=device) * 1.2 - 0.1
+    table = torch.rand(cfg.total_rows, cfg.n_features, generator=generator,
+                       device=device) * 2 - 1
+    return x, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(K2_LAYOUTS))
+def test_k2_launches_match_their_plain_versions(cuda_device, layout):
+    """K2's forward, rows and unpack launches at full width against their
+    plain versions on the card. Each makes the same f32 operations in the
+    same order as its plain version (products and sums rounded one by one,
+    the 8 corners in order), so each agrees to 1e-6 of its max and the
+    slots are equal; one launch each; the counters of one call."""
+    from dregnerf_tpu_torch.ops import packed_grid as P
+    from dregnerf_tpu_torch.runtime import profiling
+
+    cfg = P.PackedGridConfig(**K2_LAYOUTS[layout])
+    assert cfg.level_wrapped().any()
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x, table = _k2_inputs(cfg, g, cuda_device)
+    n, k2 = x.shape[0], P.vertex_encode
+    before = (k2.launches, k2.rows_launches, k2.unpack_launches)
+    profiling.reset()
+    with torch.profiler.profile():
+        out = P.vertex_encode(table, x, cfg)
+    snap = profiling.snapshot()
+    profiling.reset()
+    assert snap["counters"] == {"packed.encode_calls": 1, "packed.kernel_calls": 1,
+                                "packed.rows": n}
+    dout = torch.randn(n, cfg.out_dim, generator=g, device=cuda_device)
+    slots, rows = P._k2_rows(x, dout, cfg)
+    grads = [torch.randn(int(t), 8 * cfg.n_features, generator=g, device=cuda_device)
+             for t in cfg.level_table_sizes()]
+    dv = P._k2_unpack(grads, cfg, cuda_device)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.rows_launches, k2.unpack_launches) == tuple(b + 1 for b in before)
+    want_slots, want_rows = P.k2_rows_plain(x, dout, cfg)
+    assert torch.equal(slots, want_slots)
+    for name, got, want in (("forward", out, P.k2_forward_plain(table, x, cfg)),
+                            ("rows", rows, want_rows),
+                            ("unpack", dv, P.k2_unpack_plain(grads, cfg))):
+        err = (got - want).abs().max().item()
+        print(f"K2 {layout} {name}: max |kernel - plain| {err:.3e}, equal {torch.equal(got, want)}")
+        assert err <= 1e-6 * want.abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["f32", "bf16"])
+def test_k2_table_gradient_matches_the_pack_path(cuda_device, accum, monkeypatch):
+    """The vertex table's gradient through K2 (rows, each level's
+    accumulator, unpack) against the pack path (pack_table, K2p, the
+    einsum, the same accumulators) at L4F8 on 2^18 ray-coherent points:
+    equal slots and rows (single f32 products) into the same accumulator.
+    "f32" (K1 at every level): within 1e-6 of the max (f32 atomics in
+    another order). "bf16" with the run-length backward at level 0 and K1p
+    above: per packed slot hit k times by rows g within (k + 1) 2^-7
+    sum|g| (bf16 adds in another order), carried to V by the unpack, the
+    transpose of pack_table."""
+    from dregnerf_tpu_torch.ops import packed_grid as P
+
+    cfg = P.PackedGridConfig(grad_accum=accum,
+                             rle_step_u=0.0 if accum == "f32" else math.sqrt(3) / 1024)
+    assert (P.rle_expected_run(cfg, 0) >= P.RLE_MIN_RUN) == (accum == "bf16")
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x, table = _k2_inputs(cfg, g, cuda_device)
+    dout = torch.randn(x.shape[0], cfg.out_dim, generator=g, device=cuda_device)
+    seen, real = {}, P.level_backward
+
+    def spy(config, level, n):
+        scatter = real(config, level, n)
+
+        def recorded(slot, rows, table_rows):
+            seen.setdefault(level, []).append((slot.long(), rows, table_rows))
+            return scatter(slot, rows, table_rows)
+        return recorded
+
+    monkeypatch.setattr(P, "level_backward", spy)
+    v = table.clone().requires_grad_(True)
+    P.vertex_encode(v, x, cfg).backward(dout)
+    w = table.clone().requires_grad_(True)
+    P.packed_encode(P.pack_table(w, cfg), x, cfg).backward(dout)
+    torch.cuda.synchronize()
+    got, want = v.grad, w.grad
+    tols = []
+    for level in range(cfg.n_levels):
+        (slot, rows, table_rows), (pslot, prows, _) = seen[level]
+        assert torch.equal(slot, pslot)
+        assert (rows - prows).abs().max() <= 1e-6 * prows.abs().max()
+        k = torch.bincount(slot, minlength=table_rows).float()[:, None]
+        tols.append((k + 1.0) * 2.0**-7 * torch.zeros(table_rows, rows.shape[1], device=cuda_device)
+                    .index_add_(0, slot, rows.abs()))
+    err = (got - want).abs()
+    print(f"K2 table gradient [{accum}]: max |K2 - pack| {err.max().item():.3e} of max "
+          f"{want.abs().max().item():.3e}")
+    if accum == "f32":
+        assert err.max() <= 1e-6 * want.abs().max()
+    else:
+        assert bool((err <= P.k2_unpack_plain(tols, cfg)).all())

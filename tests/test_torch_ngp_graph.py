@@ -22,7 +22,7 @@ from torch_graph_common import graph_on_cpu
 from torch_graph_common import tiny_ngp_trainer as trainer
 
 from dregnerf_tpu_torch.models import ngp as tngp
-from dregnerf_tpu_torch.ops import gather_rows, hash_encoding, scatter_add
+from dregnerf_tpu_torch.ops import gather_rows, hash_encoding, packed_grid, scatter_add
 from dregnerf_tpu_torch.runtime import ngp_trainer as TT
 from dregnerf_tpu_torch.runtime import profiling, step_graph
 
@@ -43,13 +43,16 @@ def one_torch_thread():
 def plain_versions_count(mp):
     """The kernels' plain versions count as launches: off the card the
     wrappers launch nothing, so the launch counters would read 0."""
-    for module, fn, counter in ((gather_rows, "gather_rows_plain", gather_rows.gather_rows),
-                                (scatter_add, "scatter_add_bf16_plain",
-                                 scatter_add.scatter_add_bf16),
-                                (hash_encoding, "hash_encode_plain",
-                                 hash_encoding.hash_encode)):
-        def counted(*args, _real=getattr(module, fn), _counter=counter, **kwargs):
-            _counter.launches += 1
+    K2 = packed_grid.vertex_encode
+    for module, fn, counter, attr in (
+            (gather_rows, "gather_rows_plain", gather_rows.gather_rows, "launches"),
+            (scatter_add, "scatter_add_bf16_plain", scatter_add.scatter_add_bf16, "launches"),
+            (hash_encoding, "hash_encode_plain", hash_encoding.hash_encode, "launches"),
+            (packed_grid, "k2_forward_plain", K2, "launches"),
+            (packed_grid, "k2_rows_plain", K2, "rows_launches"),
+            (packed_grid, "k2_unpack_plain", K2, "unpack_launches")):
+        def counted(*args, _real=getattr(module, fn), _counter=counter, _attr=attr, **kwargs):
+            setattr(_counter, _attr, getattr(_counter, _attr) + 1)
             return _real(*args, **kwargs)
 
         mp.setattr(module, fn, counted)
@@ -130,6 +133,7 @@ def test_counters_and_launches_counted_per_replay_equal_the_eager_steps(runs):
     assert eager.replayed_launches == {}
     assert "ngp.live_samples" in want_counts
     assert ("rle.direct" in want_counts) == ("hash.encode_calls" not in want_counts)
+    assert ("packed.encode_calls" in want_counts) == ("hash.encode_calls" not in want_counts)
 
 
 def test_each_bucket_is_captured_once(runs):
@@ -248,7 +252,7 @@ CARD_CASES = {"one bucket": (7, (32, 32, 32), ()),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
-@pytest.mark.parametrize("encoder", ENCODERS)
+@pytest.mark.parametrize("encoder", [*ENCODERS, "packed_wrapped"])
 def test_replayed_steps_match_eager_steps_on_the_card(tmp_path, monkeypatch, encoder, case):
     """Replays against eager steps from the same weights, grid and draws:
     each update's learning rate, the losses, and the first gradient as

@@ -1,8 +1,12 @@
-"""Port parity: the packed-grid encoder (forward through K2p's plain
-version, and the table gradient under every grad_accum, with and without
-the run-length backward, through K1's and K1p's plain versions on the
-CPU) against the JAX package, plus the config meta round trip."""
+"""Port parity: both packed-grid encoders, the packed-table path
+(`packed_encode` over `pack_table`, its row gather K2p's plain version)
+and the vertex-table path (`vertex_encode`, K2's plain versions), forward
+and table gradient under every grad_accum, with and without the
+run-length backward, through K1's and K1p's plain versions on the CPU,
+against the JAX package; K2's unpack against pack_table's placement; the
+config meta round trip."""
 import dataclasses
+import functools
 import json
 
 import jax
@@ -32,33 +36,63 @@ def _inputs(cfg_kw, seed=0):
     return table, x
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_encode_forward_matches_jax(name):
-    kw = CONFIGS[name]
-    table, x = _inputs(kw)
-    jcfg, tcfg = JPG.PackedGridConfig(**kw), TPG.PackedGridConfig(**kw)
-    want = JPG.packed_encode(JPG.pack_table(jnp.asarray(table), jcfg), jnp.asarray(x), jcfg)
-    got = TPG.packed_encode(TPG.pack_table(torch.as_tensor(table), tcfg),
-                            torch.as_tensor(x), tcfg)
-    assert got.shape == (512, tcfg.out_dim)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+ENCODERS = ["packed", "vertex"]
 
 
-@pytest.mark.parametrize("accum", ["pallas", "f32"])
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_table_gradient_matches_jax(name, accum):
-    """dV of sum(encode^2), the port against jax.grad with the same
-    accumulator (pallas: K1 against the Pallas kernel in interpret mode)."""
-    kw = dict(CONFIGS[name], grad_accum=accum)
-    table, x = _inputs(kw, seed=1)
-    jcfg, tcfg = JPG.PackedGridConfig(**kw), TPG.PackedGridConfig(**kw)
+def _encode(encoder, table, x, cfg):
+    """The port's encoder `encoder` on a vertex table."""
+    if encoder == "packed":
+        return TPG.packed_encode(TPG.pack_table(table, cfg), x, cfg)
+    return TPG.vertex_encode(table, x, cfg)
+
+
+def _points(kw, key):
+    if key == "outside":  # some outside [0, 1]
+        return _inputs(kw, seed=1)[1]
+    if key == "random":
+        return np.random.default_rng(3).uniform(size=(512, 3)).astype(np.float32)
+    return _ray_points()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grad(kw_items, x_key):
+    """jax.grad of sum(encode^2) over the seed-1 vertex table at the points
+    `x_key`, once for both of the port's encoders."""
+    kw = dict(kw_items)
+    table, _ = _inputs(kw, seed=1)
+    x = _points(kw, x_key)
+    jcfg = JPG.PackedGridConfig(**kw)
 
     def jloss(v):
         return jnp.sum(JPG.packed_encode(JPG.pack_table(v, jcfg), jnp.asarray(x), jcfg) ** 2)
 
-    want = np.asarray(jax.grad(jloss)(jnp.asarray(table)))
+    return np.asarray(jax.grad(jloss)(jnp.asarray(table)))
+
+
+@pytest.mark.parametrize("encoder", ENCODERS)
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_encode_forward_matches_jax(name, encoder):
+    kw = CONFIGS[name]
+    table, x = _inputs(kw)
+    jcfg, tcfg = JPG.PackedGridConfig(**kw), TPG.PackedGridConfig(**kw)
+    want = JPG.packed_encode(JPG.pack_table(jnp.asarray(table), jcfg), jnp.asarray(x), jcfg)
+    got = _encode(encoder, torch.as_tensor(table), torch.as_tensor(x), tcfg)
+    assert got.shape == (512, tcfg.out_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("encoder", ENCODERS)
+@pytest.mark.parametrize("accum", ["pallas", "f32"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_table_gradient_matches_jax(name, accum, encoder):
+    """dV of sum(encode^2), the port against jax.grad with the same
+    accumulator (pallas: K1 against the Pallas kernel in interpret mode)."""
+    kw = dict(CONFIGS[name], grad_accum=accum)
+    table, x = _inputs(kw, seed=1)
+    tcfg = TPG.PackedGridConfig(**kw)
+    want = _jax_grad(tuple(sorted(kw.items())), "outside")
     v = torch.as_tensor(table).requires_grad_(True)
-    (TPG.packed_encode(TPG.pack_table(v, tcfg), torch.as_tensor(x), tcfg) ** 2).sum().backward()
+    (_encode(encoder, v, torch.as_tensor(x), tcfg) ** 2).sum().backward()
     assert v.grad.dtype == torch.float32
     np.testing.assert_allclose(v.grad.numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
@@ -103,10 +137,11 @@ def _level_slots(cfg, x, level):
 BF16_ACCUM = ("bf16", "sorted_bf16")
 
 
+@pytest.mark.parametrize("encoder", ENCODERS)
 @pytest.mark.parametrize("points", ["random", "rays_fit", "rays_no_rle"])
 @pytest.mark.parametrize("accum", ["f32", "sorted", "pallas", "bf16", "sorted_bf16"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_every_backward_matches_jax(name, accum, points, monkeypatch):
+def test_every_backward_matches_jax(name, accum, points, encoder, monkeypatch):
     """dV of sum(encode^2) for every grad_accum, with the run-length
     backward on (rle_step_u = 0.01: every level of "dense" and level 0 of
     "wrapped" take it) or off. "random" points overflow max_runs, so the
@@ -122,8 +157,8 @@ def test_every_backward_matches_jax(name, accum, points, monkeypatch):
     rle_u = 0.0 if points == "rays_no_rle" else 0.01
     kw = dict(CONFIGS[name], grad_accum=accum, rle_step_u=rle_u)
     table, _ = _inputs(CONFIGS[name], seed=1)
-    x = (np.random.default_rng(3).uniform(size=(512, 3)).astype(np.float32)
-         if points == "random" else _ray_points())
+    x_key = "random" if points == "random" else "rays"
+    x = _points(kw, x_key)
     jcfg, tcfg = JPG.PackedGridConfig(**kw), TPG.PackedGridConfig(**kw)
     if rle_u:  # level 0 takes RLE; its run count fits max_runs on rays only
         slots = _level_slots(jcfg, x, 0)
@@ -132,10 +167,7 @@ def test_every_backward_matches_jax(name, accum, points, monkeypatch):
         assert JPG.rle_expected_run(jcfg, 0) >= JPG.RLE_MIN_RUN
         assert (n_runs <= max_runs) == (points == "rays_fit"), (n_runs, max_runs)
 
-    def jloss(v):
-        return jnp.sum(JPG.packed_encode(JPG.pack_table(v, jcfg), jnp.asarray(x), jcfg) ** 2)
-
-    want = np.asarray(jax.grad(jloss)(jnp.asarray(table)))
+    want = _jax_grad(tuple(sorted(kw.items())), x_key)
     seen = {}  # level -> (slot, g, table_rows) of its backward
     real_level_backward = TPG.level_backward
 
@@ -149,7 +181,7 @@ def test_every_backward_matches_jax(name, accum, points, monkeypatch):
 
     monkeypatch.setattr(TPG, "level_backward", spy)
     v = torch.as_tensor(table).requires_grad_(True)
-    (TPG.packed_encode(TPG.pack_table(v, tcfg), torch.as_tensor(x), tcfg) ** 2).sum().backward()
+    (_encode(encoder, v, torch.as_tensor(x), tcfg) ** 2).sum().backward()
     assert v.grad.dtype == torch.float32 and len(seen) == tcfg.n_levels
     got = v.grad.numpy()
     if accum not in BF16_ACCUM:
@@ -166,3 +198,66 @@ def test_every_backward_matches_jax(name, accum, points, monkeypatch):
     tol = vt.grad.numpy()
     err = np.abs(got - want)
     assert np.all(err <= tol), float((err / np.maximum(tol, 1e-30)).max())
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_k2_unpack_inverts_pack_table_placement(name):
+    """Each vertex row sits in 8 packed slots (one a corner), so K2's plain
+    unpack of pack_table(V) gives 8 V exactly (integer rows: exact sums);
+    and the vertex rows of K2's slots are the packed rows the gather of
+    the packed path reads."""
+    cfg = TPG.PackedGridConfig(**CONFIGS[name])
+    rng = np.random.default_rng(4)
+    v = torch.as_tensor(rng.integers(-1000, 1000, (cfg.total_rows, cfg.n_features))
+                        .astype(np.float32))
+    assert torch.equal(TPG.k2_unpack_plain(list(TPG.pack_table(v, cfg)), cfg), 8 * v)
+    x = torch.as_tensor(_inputs(CONFIGS[name])[1])
+    slots, _ = TPG.k2_rows_plain(x, torch.ones(x.shape[0], cfg.out_dim), cfg)
+    rows = TPG.vertex_rows(slots.t().long(), cfg)  # [N, L, 8]
+    for l, p in enumerate(TPG.pack_table(v, cfg)):
+        assert torch.equal(v[rows[:, l]], p[slots[l].long()].reshape(-1, 8, cfg.n_features))
+
+
+def test_k2_share_reads_kernel_launches_over_encoder_calls():
+    """benchmark/metrics/k2_share.py over the store's `packed.*` counters:
+    the plain path counts the call and no launch (a launch on the card is
+    counted here by hand); silent without a trace, units, encoder calls or
+    a device kernel in the trace."""
+    from types import SimpleNamespace
+
+    from benchmark.metrics import k2_share
+    from dregnerf_tpu_torch.runtime import profiling
+
+    card = SimpleNamespace(kernel_s={"void packed_grid_fwd<8>(float const*)": 1e-3})
+    cpu = SimpleNamespace(kernel_s={"aten::mm": 1e-3})
+    cfg = TPG.PackedGridConfig(**CONFIGS["dense"])
+    table, x = (torch.as_tensor(a) for a in _inputs(CONFIGS["dense"]))
+    profiling.reset()
+    try:
+        assert k2_share.read({"units": 2}, card) is None
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            TPG.vertex_encode(table, x, cfg)
+            TPG.packed_encode(TPG.pack_table(table, cfg), x, cfg)
+            profiling.count("packed.kernel_calls", 1)
+        assert profiling.snapshot()["counters"] == {"packed.encode_calls": 2,
+                                                    "packed.kernel_calls": 1}
+        assert k2_share.read({"units": 2}, card) == 50.0
+        assert k2_share.read({"units": 2}, cpu) is None
+        assert k2_share.read({"units": 0}, card) is None
+        assert k2_share.read({"units": 2}, None) is None
+    finally:
+        profiling.reset()
+
+
+def test_vertex_encode_refuses_what_k2_does_not_take():
+    cfg = TPG.PackedGridConfig(**CONFIGS["wrapped"])
+    table, x = (torch.as_tensor(a) for a in _inputs(CONFIGS["wrapped"]))
+    with pytest.raises(ValueError, match="no gradient to the positions"):
+        TPG.vertex_encode(table, x.clone().requires_grad_(True), cfg)
+    with pytest.raises(TypeError, match="float32"):
+        TPG.vertex_encode(table.double(), x, cfg)
+    with pytest.raises(TypeError, match="total_rows"):
+        TPG.vertex_encode(table[1:], x, cfg)
+    with pytest.raises(ValueError, match="features"):
+        TPG.vertex_encode(table[:, :3].contiguous(), x,
+                          TPG.PackedGridConfig(**CONFIGS["wrapped"], n_features=3))

@@ -84,10 +84,12 @@ def test_exact_visibility_steps(exact_root, tmp_path, warped):
 
 def test_exact_steps_gather_from_every_level_of_both_fields(exact_root, tmp_path,
                                                             monkeypatch):
-    """The rows of an exact step come through packed_grid.gather_rows (K2p
-    on the card) from each level table of the two NeRF contexts and from
-    no other table: the map that chip_smoke.py uses to hold the path's own
-    K2p calls against index_select."""
+    """On the CPU the rows of an exact step come through
+    packed_grid.gather_rows from each level table of the packed tables that
+    prepare_params builds for the two NeRF contexts, and from no other
+    table. (On the card the contexts hold no packed table: K2 reads each
+    field's vertex table, which chip_smoke.py holds against K2's plain
+    forward.)"""
     from dregnerf_tpu_torch.ops import packed_grid
     from dregnerf_tpu_torch.ops.gather_rows import gather_rows_plain
 

@@ -52,17 +52,24 @@ def graph_on_cpu(mp, captures=None):
 def tiny_ngp_trainer(out, encoder="packed", device="cpu", extra=()):
     """An NGP trainer at the CLI defaults on a 2-level grid: the packed one
     with the bf16 table gradient and the run-length backward at level 0, or
-    a 2-level xor-hash grid (`--encoder xor_hash`)."""
+    a 2-level xor-hash grid (`--encoder xor_hash`); "packed_wrapped" is a
+    packed grid of 3 levels of 4 features, the last two wrapped into 2^10
+    rows, as the L8F4 layout's fine levels are."""
     cfg = config_parser(["--expname", "tiny", "--out_dir", str(out), "--watchdog_s", "0",
                          "--aabb=-1.0,-1.0,-1.0,1.0,1.0,1.0", "--sample_budget", "2048",
                          "--max_march_steps", "64", "--grid_resolution", "16",
                          "--init_num_rays", "32", "--max_num_rays", "256",
-                         "--encoder", encoder, *extra])
+                         "--encoder", "xor_hash" if encoder == "xor_hash" else "packed",
+                         *extra])
     tr = ngp_trainer.NGPTrainer(cfg, fixtures.make_scene_data("train", num_views=4,
                                                               image_size=16), device=device)
     if encoder == "packed":
         grid = PackedGridConfig(n_levels=2, log2_table_size=10, base_resolution=4,
                                 per_level_scale=2.0, grad_accum="bf16",
+                                rle_step_u=tr.model_config.grid.rle_step_u)
+    elif encoder == "packed_wrapped":
+        grid = PackedGridConfig(n_levels=3, n_features=4, log2_table_size=10, base_resolution=4,
+                                per_level_scale=4.0, grad_accum="bf16",
                                 rle_step_u=tr.model_config.grid.rle_step_u)
     else:
         grid = HashGridConfig(n_levels=2, log2_table_size=10, base_resolution=4,
