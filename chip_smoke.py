@@ -179,7 +179,9 @@ Phases, in order; any failure exits non-zero:
      width (8x256, bf16) at SHAPE_FLAGS, FIELD_STEPS steps each (dnerf on
      the fixture with times i/35, validated on DNERF_VAL_VIEWS at their
      times): finite losses, every parameter moved, ms a step, 8 profiled
-     steps, peak memory, MLP FLOPs a step against the f32 peak, train and
+     steps (with their `mlp.rows` and `mlp.warp_rows` counters: every
+     buffer row a step, warped under dnerf), peak memory, MLP FLOPs a step
+     against the f32 peak, train and
      val PSNR, the checkpoint read back bit for bit; and the xor-hash NGP
      at full width, built by the trainer from `--encoder xor_hash`,
      trained to HASH_STEPS, profiled, saved ("encoder": "xor_hash"),
@@ -3688,7 +3690,7 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
 
     from dregnerf_tpu_torch.datasets import dnerf_synthetic, objaverse
     from dregnerf_tpu_torch.datasets.fixtures import render_views
-    from dregnerf_tpu_torch.runtime import ngp_trainer
+    from dregnerf_tpu_torch.runtime import ngp_trainer, profiling
     from dregnerf_tpu_torch.runtime.checkpoint import leaves_with_paths
     from dregnerf_tpu_torch.runtime.config import config_parser
 
@@ -3712,8 +3714,19 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
     before = {k: p.detach().clone() for k, p in leaves_with_paths(trainer.params).items()}
     _reset_kernel_launches()
     run = train_timed(torch, trainer, range(FIELD_STEPS))
+    profiling.reset()
     busy_ms, profiled_ms = profile_phase(torch, trainer, FIELD_STEPS)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
     profiled_bucket = trainer.num_rays
+    # the profiled steps (no occupancy update among them) replay the graph,
+    # which counts the recording's rows again: every buffer row through the
+    # trunk, and under dnerf through the warp first
+    rows = (PROFILE_STEPS - 1) * cfg.sample_budget
+    mlp_rows = (counters.get("mlp.rows"), counters.get("mlp.warp_rows", 0))
+    check(mlp_rows == (rows, rows if name == "dnerf" else 0),
+          f"--field {name}: profiled steps counted (mlp.rows, mlp.warp_rows) {mlp_rows}, "
+          f"expected {rows} rows")
     step = FIELD_STEPS + 1 + PROFILE_STEPS
     flops = 2 * mlp_macs(mcfg) * 3 * run["samples"]  # forward 2 MACs, backward twice that
     # validate() through a spy on its render call: the time it renders at
@@ -3752,7 +3765,8 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
            "train_psnr_first": run["psnr"][0], "train_psnr_last": run["psnr"][-1],
            "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
            "val_psnr": val_psnr, "val_s": val_s, "val_time": want_time,
-           "checkpoint_bit_equal": True}
+           "checkpoint_bit_equal": True, "profiled_mlp_rows": mlp_rows[0],
+           "profiled_mlp_warp_rows": mlp_rows[1]}
     if name == "dnerf":
         out["warp_moved"] = all(v for k, v in moved.items() if k.startswith("warp"))
     print(f"--field {name}: {FIELD_STEPS} steps in {run['wall_s']:.3f} s wall; steady "
@@ -3762,7 +3776,8 @@ def mlp_field_phase(torch, out_dir: str, name: str) -> dict:
           f"{run['peak_gib']:.2f} GiB; MLP {out['mlp_tflop_a_step']:.4f} TFLOP a step = {out['f32_peak_share']:.4f} of the f32 "
           f"peak; train psnr {run['psnr'][0]:.3f} -> {run['psnr'][-1]:.3f}; val psnr "
           f"{val_psnr:.3f} at time {want_time} ({val_s:.3f} s); checkpoint read back bit for "
-          f"bit; port kernel launches {launches}", flush=True)
+          f"bit; port kernel launches {launches}; profiled mlp.rows {mlp_rows[0]}, "
+          f"mlp.warp_rows {mlp_rows[1]}", flush=True)
     return out
 
 

@@ -15,16 +15,24 @@ between the packages. Each dense layer rounds its operands to
 `compute_dtype` and multiplies them as f32 (the products of bf16 values are
 exact, the sums f32), then adds the f32 bias: the JAX package's
 `jnp.dot(..., preferred_element_type=f32) + b`.
+
+Spans and counters (runtime/profiling.py, on while a profiler records):
+`mlp.warp`, `mlp.trunk` (the trunk and the sigma head) and `mlp.color`
+(the bottleneck and the colour head), sub-stages of the renderer's
+`render.field`; `mlp.rows` counts the points through the trunk and
+`mlp.warp_rows` those warped first (host ints, from the shapes).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from dregnerf_tpu_torch.device import resolve_device
+from dregnerf_tpu_torch.runtime import profiling
 
 Params = Dict[str, Any]
 
@@ -160,10 +168,16 @@ def query_density(params: Params, x: torch.Tensor,
     """softplus density [..., 1] at x [..., 3] (warped first when the
     config has a warp and a time `t` [..., 1] is given), and the trunk's
     features with `return_feat`."""
+    rows = math.prod(x.shape[:-1])
     if config.warp and t is not None:
-        x = warp_points(params, x, t, config)
-    h = _trunk(params, posenc(x, config.posenc_xyz), config)
-    sigma = torch.nn.functional.softplus(_apply_dense(params["sigma"], h, config.compute_dtype))
+        profiling.count("mlp.warp_rows", rows)
+        with profiling.annotate("mlp.warp"):
+            x = warp_points(params, x, t, config)
+    profiling.count("mlp.rows", rows)
+    with profiling.annotate("mlp.trunk"):
+        h = _trunk(params, posenc(x, config.posenc_xyz), config)
+        sigma = torch.nn.functional.softplus(
+            _apply_dense(params["sigma"], h, config.compute_dtype))
     if return_feat:
         return sigma, h
     return sigma
@@ -171,11 +185,12 @@ def query_density(params: Params, x: torch.Tensor,
 
 def query_rgb(params: Params, viewdirs: torch.Tensor, feat: torch.Tensor,
               config: VanillaNeRFConfig = VanillaNeRFConfig()) -> torch.Tensor:
-    b = _apply_dense(params["bottleneck"], feat, config.compute_dtype)
-    h = torch.cat([b, posenc(viewdirs, config.posenc_dir)], dim=-1)
-    for layer in params["color"]:
-        h = torch.relu(_apply_dense(layer, h, config.compute_dtype))
-    return torch.sigmoid(_apply_dense(params["rgb"], h, config.compute_dtype))
+    with profiling.annotate("mlp.color"):
+        b = _apply_dense(params["bottleneck"], feat, config.compute_dtype)
+        h = torch.cat([b, posenc(viewdirs, config.posenc_dir)], dim=-1)
+        for layer in params["color"]:
+            h = torch.relu(_apply_dense(layer, h, config.compute_dtype))
+        return torch.sigmoid(_apply_dense(params["rgb"], h, config.compute_dtype))
 
 
 def forward(params: Params, positions: torch.Tensor, viewdirs: torch.Tensor,

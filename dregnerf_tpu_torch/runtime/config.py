@@ -1,7 +1,7 @@
 """Argparse flags of the port's entry points (copy of the flags of
 dregnerf_tpu/runtime/config.py that the NGP trainer, its evaluator and the
 registration trainer and evaluator read: same names and defaults), plus
-`--device`, `--profile_steps` and `--encoder`.
+`--device`, `--profile_steps`, `--encoder` and `--field_lr`.
 
 Every `--encoder` trains, every `--grad_accum` value with or without
 `--rle_backward` (the packed encoder's), and every `--march_compaction`,
@@ -78,6 +78,10 @@ def config_parser(argv=None) -> argparse.Namespace:
 
     p.add_argument("--field", type=str, default="ngp", choices=["ngp", "vanilla", "dnerf"],
                    help="radiance-field family (models/fields.py)")
+    p.add_argument("--field_lr", type=float, default=1e-2,
+                   help="stage-1 base learning rate of Adam, under the x0.33 multistep "
+                   "schedule (default: the JAX package's NGP rate, 1e-2; D-NeRF trains at "
+                   "5e-4)")
     p.add_argument("--out_dir", type=str, default="out")
     p.add_argument("--sample_budget", type=int, default=1 << 18)
     p.add_argument("--max_march_steps", type=int, default=1024)

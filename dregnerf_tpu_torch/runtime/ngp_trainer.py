@@ -13,13 +13,12 @@ generate rays, march + render with stratified jitter, Huber loss over the
 alive rays, backward (the packed grid's through K2's rows and unpack
 around kernel K1 or K1p and, at coarse levels, the run-length backward, as
 `grad_accum` and `rle_backward` say, ops/packed_grid.py; the hash table's
-through K6,
-ops/hash_encoding.py), Adam (lr 1e-2, eps 1e-15) under the x0.33
-multistep schedule at {1/2, 3/4, 9/10} of training. Every 16 steps the
-occupancy grid gets an EMA update (all cells below step 256). The ray
-bucket follows the sample budget in powers of two, from a count read back
-once every 8 steps with one interval of lag, so the host never waits for
-the step it just queued.
+through K6, ops/hash_encoding.py), Adam (lr `--field_lr`, 1e-2 by default;
+eps 1e-15) under the x0.33 multistep schedule at {1/2, 3/4, 9/10} of
+training. Every 16 steps the occupancy grid gets an EMA update (all cells
+below step 256). The ray bucket follows the sample budget in powers of two,
+from a count read back once every 8 steps with one interval of lag, so the
+host never waits for the step it just queued.
 
 The step's random draws (`StepDraws`) are tensors; the trainer draws them
 on the device from its own `torch.Generator`. `train()` runs each step
@@ -374,8 +373,11 @@ class NGPTrainer:
             p.requires_grad_(True)
 
     def setup_optimizer(self) -> None:
-        self.lr_at = multistep_lr(BASE_LR, self.config.max_iterations)
-        self.optimizer = torch.optim.Adam(leaves_with_paths(self.params).values(), lr=BASE_LR,
+        """Adam at `--field_lr` under the multistep schedule (BASE_LR for a
+        config that lacks the flag)."""
+        base_lr = getattr(self.config, "field_lr", BASE_LR)
+        self.lr_at = multistep_lr(base_lr, self.config.max_iterations)
+        self.optimizer = torch.optim.Adam(leaves_with_paths(self.params).values(), lr=base_lr,
                                           betas=(0.9, 0.999), eps=1e-15)
 
     # ------------------------------------------------------------- train step
